@@ -1,9 +1,10 @@
 """Builds, loads and launches the hand-written Hopper kernels.
 
-All `csrc/*.cu` files compile with ONE nvcc call into a shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so the build takes
-seconds). The library lands in `build/torch_kernels/` at the repository root,
-named by a hash of the sources, and is built on first use.
+Every `csrc/*.cu` file compiles in its own nvcc process, all started
+together, and one more nvcc call links the objects into a shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers). The
+library lands in `build/torch_kernels/` at the repository root, named by a
+hash of the sources, and is built on first use.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.__call__` raises when that is not 0 and counts
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "zk_ntt_stage": [_P, _P, _LL, _LL, _P],
     "zk_msm_g1": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _P, _P, _P,
                   _P, _P],
+    "zk_msm_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "zk_fq_cols_mul": [_P, _P, _P, _P, _LL, _P],
 }
 
 
@@ -94,6 +97,43 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run(procs) -> None:
+    """Wait for every (name, Popen); raise with the errors of any that
+    failed."""
+    errors = []
+    for name, proc in procs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name} failed ({proc.returncode}):\n"
+                          f"{err[-4000:]}")
+    if errors:
+        raise KernelError("\n".join(errors))
+
+
+def _build(so: Path) -> None:
+    """One nvcc per source, all at once, then one link into `so`."""
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        _run(procs)
+        _run([("link", subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *[str(o) for o in objs]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, so)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
+
+
 def library() -> _Library:
     """The loaded kernel library, built from `csrc/` on first use."""
     global _LIB
@@ -109,16 +149,9 @@ def library() -> _Library:
         seconds = 0.0
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _build(so)
             seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise KernelError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-            os.replace(tmp, so)
         _LIB = _Library(so, seconds)
         return _LIB
 
@@ -129,11 +162,15 @@ field_add = Kernel("zk_field_add")
 field_sub = Kernel("zk_field_sub")
 ntt_stage = Kernel("zk_ntt_stage")
 msm_g1 = Kernel("zk_msm_g1")
+msm_u8 = Kernel("zk_msm_u8")
+fq_cols_mul = Kernel("zk_fq_cols_mul")
 
 KERNELS: Dict[str, tuple] = {
     "fr_ops": (field_mul, field_add, field_sub),
     "ntt": (ntt_stage,),
     "msm": (msm_g1,),
+    "msm_u8": (msm_u8,),
+    "fq_cols": (fq_cols_mul,),
 }
 
 

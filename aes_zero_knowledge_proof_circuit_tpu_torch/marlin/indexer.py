@@ -2,7 +2,8 @@
 
 Same protocol output as the host oracle marlin/indexer.index: the index
 polynomials row, col and val of A, B and C are interpolated over K with
-kernel K2, and their 9 commitments run on kernel K3. The returned
+kernel K2, and their 9 commitments run on the 8-bit bucket scan (kernel K4,
+ops/msm_device.py), as index_jax commits through msm_device. The returned
 MarlinProvingKey has numpy-backed matrices (slots int64, values signed) and
 no host coefficient lists; it carries the COO arrays (`coo_np`) and the SRS
 powers already on the device (`torch_points`) for TorchProver.
@@ -28,7 +29,7 @@ from aes_zero_knowledge_proof_circuit_tpu.ops.poly_host import domain
 
 from ..ops import poly as P
 from ..ops.field import fr_ops
-from ..ops.msm import msm
+from ..ops.msm_device import DevicePoints, digit_limbs, msm_device
 from ..utils.srs import device_powers
 from .prover import _small_to_mont, coo_arrays, to_msm_digits
 
@@ -59,6 +60,7 @@ def index(r1cs: R1CS, srs: kzg.SRS, device) -> MarlinProvingKey:
     n = 1 << log_n
     h = domain(log_n)
     points = device_powers(srs, dev)
+    srs_dev = DevicePoints(points)
     h_pows = P.powers(P.scalar(h.omega, dev), n)
     n_inv = P.scalar(pow(n, -1, R_MOD), dev)
     v2s = np.asarray(var_to_slot, np.int64)
@@ -80,7 +82,8 @@ def index(r1cs: R1CS, srs: kzg.SRS, device) -> MarlinProvingKey:
             torch.as_tensor(vals_signed, device=dev)), col_evals), n_inv)
         for coeffs in (P.intt(log_k, row_evals), P.intt(log_k, col_evals),
                        P.intt(log_k, val_norm)):
-            comms.append(kzg.Commitment(msm(points, to_msm_digits(coeffs))))
+            comms.append(kzg.Commitment(msm_device(
+                srs_dev.slice(0, k), digit_limbs(to_msm_digits(coeffs)))))
         matrices.append(MatrixIndex(
             log_k=log_k, nnz=nnz, row_slots=row_slots, col_slots=col_slots,
             vals=vals_signed, row_evals=None, col_evals=None, val_evals=None,

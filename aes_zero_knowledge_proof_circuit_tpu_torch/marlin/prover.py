@@ -8,14 +8,20 @@ proof object. With zk=False the proof equals the host prover's field for
 field; with a seeded rng a zk proof equals JaxProver's, because the masking
 randomness is drawn exactly as prover_jax draws it.
 
-Fr products run kernel K1, transforms K2, and every commitment and both
-opening proofs K3. The hiding terms stay on the host (two gamma powers), as
-in the reference.
+Fr products run kernel K1 and transforms K2. Every commitment and both
+opening proofs run on one of the JAX prover's two MSM engines, chosen by
+`msm_engine`: "mxu" (the default) is the signed 13-bit Pippenger of
+ops/msm.py (kernel K3, the counterpart of msm_mxu), "pallas" the 8-bit
+bucket scan of ops/msm_device.py (kernel K4, the counterpart of
+msm_device). Left unset, ZKAES_MSM_MXU=0 selects "pallas", as it does in
+prover_jax. The hiding terms stay on the host (two gamma powers), as in the
+reference.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import random as _random
 import time as _time
 from typing import List, Optional, Sequence
@@ -39,6 +45,7 @@ from aes_zero_knowledge_proof_circuit_tpu.utils.transcript import Transcript
 from ..ops import poly as P
 from ..ops.field import fr_ops
 from ..ops.msm import msm
+from ..ops.msm_device import DevicePoints, digit_limbs, msm_device
 from ..utils.srs import device_powers
 
 F = fr_ops()
@@ -46,6 +53,15 @@ L = F.L
 RAND_BYTES = 34   # prover_jax._rand_mont draws one 34-byte value per element
 
 log = logging.getLogger(__name__)
+
+
+MSM_ENGINES = ("mxu", "pallas")
+
+
+def default_msm_engine() -> str:
+    """The engine prover_jax._mxu_ok picks: "pallas" when ZKAES_MSM_MXU is
+    "0", "mxu" otherwise."""
+    return "pallas" if os.environ.get("ZKAES_MSM_MXU", "1") == "0" else "mxu"
 
 
 def to_msm_digits(coeffs_mont: torch.Tensor) -> torch.Tensor:
@@ -125,9 +141,14 @@ class _StageTimer:
 class TorchProver:
     """Device-resident prover bound to one proving key and one device."""
 
-    def __init__(self, pk: MarlinProvingKey, device):
+    def __init__(self, pk: MarlinProvingKey, device,
+                 msm_engine: Optional[str] = None):
         self.pk = pk
         self.device = torch.device(device)
+        self.msm_engine = msm_engine or default_msm_engine()
+        if self.msm_engine not in MSM_ENGINES:
+            raise ValueError(f"msm_engine must be one of {MSM_ENGINES}, got "
+                             f"{self.msm_engine!r}")
         dev = self.device
         self.n = pk.n
         self.log_n = pk.log_n
@@ -136,7 +157,7 @@ class TorchProver:
         points = getattr(pk, "torch_points", None)
         if points is None or points.device != dev:
             points = device_powers(pk.srs, dev)
-        self.points = points
+        self.srs_dev = DevicePoints(points)
         self.last_stage_times: dict = {}
 
         coo = getattr(pk, "coo_np", None) or coo_arrays(pk.r1cs)
@@ -175,11 +196,11 @@ class TorchProver:
     # -- commitments -------------------------------------------------------------
 
     def _msm(self, offset: int, coeffs: torch.Tensor):
-        n = coeffs.shape[0]
-        if offset + n > self.points.shape[0]:
-            raise ValueError(f"commit of {n} terms at offset {offset} exceeds "
-                             f"the SRS ({self.points.shape[0]} powers)")
-        return msm(self.points[offset:offset + n], to_msm_digits(coeffs))
+        points = self.srs_dev.slice(offset, coeffs.shape[0])
+        scalars = to_msm_digits(coeffs)
+        if self.msm_engine == "pallas":
+            return msm_device(points, digit_limbs(scalars))
+        return msm(points, scalars)
 
     def _commit_batch(self, items, rng: Optional[_random.Random] = None):
         """items: (coeffs, offset, hiding). Hiding randomness is drawn first,

@@ -119,3 +119,36 @@ def jac_add(p: Jac, q: Jac) -> Jac:
     out = _degenerate(p, (x3, y3, z3), h, rr)
     out = select(is_inf(p), q, out)
     return select(is_inf(q), p, out)
+
+
+def run_sums(key: torch.Tensor, pts: Jac, n_out: int, affine: bool) -> Jac:
+    """Table [n_out] of the sums of the rows of `pts` that share a key (key
+    non-decreasing; rows with no point are infinity), by a pairwise tree:
+    log2 of the longest run rounds of one vectorized add each. With
+    `affine` every row is finite with z == 1 and the first round uses
+    affine_add."""
+    dev = key.device
+    acc = tuple(t.clone() for t in pts)
+    add = affine_add if affine else jac_add
+    while key.shape[0]:
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[1:] = key[1:] != key[:-1]
+        run = torch.cumsum(first.to(torch.int64), 0) - 1
+        starts = torch.nonzero(first).reshape(-1)
+        pos = torch.arange(key.shape[0], device=dev) - starts[run]
+        run_len = torch.bincount(run)
+        if int(run_len.max()) <= 1:
+            break
+        pair = (pos % 2 == 0) & (pos + 1 < run_len[run])
+        i = torch.nonzero(pair).reshape(-1)
+        summed = add(tuple(a[i] for a in acc), tuple(a[i + 1] for a in acc))
+        add = jac_add
+        for a, s in zip(acc, summed):
+            a[i] = s
+        even = pos % 2 == 0
+        key = key[even]
+        acc = tuple(a[even] for a in acc)
+    table = infinity(n_out, dev)
+    for t, a in zip(table, acc):
+        t[key] = a
+    return table

@@ -25,6 +25,7 @@ from aes_zero_knowledge_proof_circuit_tpu.ops.curve_host import (
 from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD
 
 from .. import kernels
+from ..utils.native import native
 from . import curve
 from .field import fq_ops, to_u32
 
@@ -179,9 +180,7 @@ def _segments(offsets: torch.Tensor, windows: int, buckets: int):
 
 def plain_bucket_sums(points, idx, neg, offsets, windows: int, buckets: int):
     """Bucket totals [W, B] (as a Jacobian triple of [W*B, 12]): the sorted
-    pairs of each bucket summed by a pairwise tree (log2 of the longest run
-    rounds of one vectorized add each; the first round adds affine
-    points)."""
+    pairs of each bucket summed by a pairwise tree (`curve.run_sums`)."""
     dev = points.device
     counts = offsets[1:] - offsets[:-1]
     key = torch.repeat_interleave(
@@ -192,42 +191,21 @@ def plain_bucket_sums(points, idx, neg, offsets, windows: int, buckets: int):
     key, x, y, sneg = key[keep], x[keep], y[keep], neg[keep].bool()
     y = FQ.select(sneg, FQ.plain_sub(torch.zeros_like(y), y), y)
     one = FQ.const("one", dev).expand_as(x)
-    acc = (x, y, one.clone())
-    add = curve.affine_add
-    while key.shape[0]:
-        first = torch.ones_like(key, dtype=torch.bool)
-        first[1:] = key[1:] != key[:-1]
-        run = torch.cumsum(first.to(torch.int64), 0) - 1
-        starts = torch.nonzero(first).reshape(-1)
-        pos = torch.arange(key.shape[0], device=dev) - starts[run]
-        run_len = torch.bincount(run)
-        if int(run_len.max()) <= 1:
-            break
-        pair = (pos % 2 == 0) & (pos + 1 < run_len[run])
-        i = torch.nonzero(pair).reshape(-1)
-        summed = add(tuple(a[i] for a in acc), tuple(a[i + 1] for a in acc))
-        add = curve.jac_add
-        for a, s in zip(acc, summed):
-            a[i] = s
-        even = pos % 2 == 0
-        key = key[even]
-        acc = tuple(a[even] for a in acc)
-    table = curve.infinity(windows * (buckets + 1), dev)
-    for t, a in zip(table, acc):
-        t[key] = a
+    table = curve.run_sums(key, (x, y, one.clone()), windows * (buckets + 1),
+                           affine=True)
     sel = (torch.arange(windows * (buckets + 1), device=dev)
            % (buckets + 1)) != 0
     return tuple(t[sel] for t in table)
 
 
-def plain_bucket_window_sums(points, idx, neg, offsets, windows: int,
-                             buckets: int) -> torch.Tensor:
-    """Plain version of K3: the same three phases as csrc/msm.cu."""
-    dev = points.device
-    bsum = plain_bucket_sums(points, idx, neg, offsets, windows, buckets)
+def plain_fold(bsum, windows: int, buckets: int) -> torch.Tensor:
+    """[W, 3, 12] window sums S = sum_j (j + 1) B_j from the bucket totals
+    [W*B] (bucket b at j = b - 1), in the two chunked running-sum passes of
+    csrc/msm.cu (`bucket_chunk_reduce`, `window_combine`)."""
+    dev = bsum[0].device
     chunk = _chunk(buckets)
     nch = buckets // chunk
-    # phase 2: per (window, chunk) running sums from the top bucket down
+    # per (window, chunk) running sums from the top bucket down
     cols = tuple(t.reshape(windows * nch, chunk, FQ.L) for t in bsum)
     run = curve.infinity(windows * nch, dev)
     acc = curve.infinity(windows * nch, dev)
@@ -236,7 +214,7 @@ def plain_bucket_window_sums(points, idx, neg, offsets, windows: int,
         acc = curve.jac_add(acc, run)
     a_c = tuple(t.reshape(windows, nch, FQ.L) for t in acc)
     r_c = tuple(t.reshape(windows, nch, FQ.L) for t in run)
-    # phase 3: S = sum_c A_c + CH * sum_c c R_c
+    # S = sum_c A_c + CH * sum_c c R_c
     run = curve.infinity(windows, dev)
     acc = curve.infinity(windows, dev)
     for c in range(nch - 1, 0, -1):
@@ -247,6 +225,13 @@ def plain_bucket_window_sums(points, idx, neg, offsets, windows: int,
     for c in range(nch):
         acc = curve.jac_add(acc, tuple(t[:, c] for t in a_c))
     return torch.stack(acc, dim=1)
+
+
+def plain_bucket_window_sums(points, idx, neg, offsets, windows: int,
+                             buckets: int) -> torch.Tensor:
+    """Plain version of K3: the same three phases as csrc/msm.cu."""
+    bsum = plain_bucket_sums(points, idx, neg, offsets, windows, buckets)
+    return plain_fold(bsum, windows, buckets)
 
 
 # -- top level ------------------------------------------------------------------
@@ -295,12 +280,11 @@ def msm(points: torch.Tensor, scalars: torch.Tensor) -> AffinePoint:
 
 def native_msm(packed: np.ndarray, scalars: torch.Tensor) -> AffinePoint:
     """The native C++ Pippenger (host) on the SRS checkpoint layout and
-    [n, 8] standard Fr limbs: the oracle K3 is held to."""
-    from aes_zero_knowledge_proof_circuit_tpu import native
-
+    [n, 8] standard Fr limbs: the oracle K3 and K4 are held to."""
     limbs = to_u32(scalars.cpu()).numpy().astype(np.uint64)
     u64 = limbs[:, 0::2] | (limbs[:, 1::2] << np.uint64(32))
-    out = native.g1_msm_packed(np.ascontiguousarray(packed[: len(u64)]), u64)
+    out = native().g1_msm_packed(np.ascontiguousarray(packed[: len(u64)]),
+                                 u64)
     if out is None:
-        raise RuntimeError("native zkhost library unavailable")
+        raise RuntimeError("native Pippenger failed")
     return out

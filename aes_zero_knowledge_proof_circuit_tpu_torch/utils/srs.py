@@ -28,6 +28,7 @@ from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
 from aes_zero_knowledge_proof_circuit_tpu.utils.serialize import VERSION, _r_g2
 
 from ..ops.msm import points_from_packed
+from .native import native
 
 log = logging.getLogger(__name__)
 
@@ -82,8 +83,7 @@ def device_powers(srs: kzg.SRS, device) -> torch.Tensor:
 def generate_srs_native(max_degree: int, rng: _random.Random) -> kzg.SRS:
     """Powers-of-tau SRS through the native C++ fixed-base ladder. Raises
     when the native library is unavailable (no slow fallback)."""
-    from aes_zero_knowledge_proof_circuit_tpu import native
-
+    lib = native()
     tau = rng.randrange(1, R_MOD)
     gamma = rng.randrange(1, R_MOD)
     g = g1_generator()
@@ -92,9 +92,9 @@ def generate_srs_native(max_degree: int, rng: _random.Random) -> kzg.SRS:
     for i in range(1, n):
         scalars[i] = scalars[i - 1] * tau % R_MOD
     log.info("native SRS: %d fixed-base powers", n)
-    packed = native.g1_powers_fixed_base_packed(g, scalars)
+    packed = lib.g1_powers_fixed_base_packed(g, scalars)
     if packed is None:
-        raise RuntimeError("native zkhost library unavailable")
+        raise RuntimeError("native fixed-base ladder failed")
     powers = PackedPowers(packed)
     if powers[0] != g or powers[1] != g.mul_scalar(tau):
         raise RuntimeError("native SRS generation produced wrong powers")

@@ -25,7 +25,9 @@ def test_module_list_covers_the_slice():
     names = set(port_modules())
     for leaf in ("api", "convert", "kernels", "ops.field", "ops.ntt",
                  "ops.poly", "ops.witness", "ops.curve", "ops.msm",
-                 "utils.srs", "marlin.indexer", "marlin.prover", "__main__"):
+                 "ops.msm_device", "ops.msm_pallas", "ops.msm_ntt_mul",
+                 "utils.srs", "utils.native", "marlin.indexer",
+                 "marlin.prover", "__main__"):
         assert f"{port.__name__}.{leaf}" in names
 
 

@@ -1,4 +1,5 @@
-"""The port's indexer: the 9 index commitments (and the slot layout) equal
+"""The port's indexer: the 9 index commitments, made on the 8-bit bucket
+scan (ops/msm_device.py, plain K4 version here), and the slot layout equal
 the host indexer's, on the toy circuit and on the u32 add circuit."""
 
 import random

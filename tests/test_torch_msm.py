@@ -6,7 +6,6 @@ from numpy seeds); equality is of affine points, zero tolerance."""
 import numpy as np
 import pytest
 
-from aes_zero_knowledge_proof_circuit_tpu import native
 from aes_zero_knowledge_proof_circuit_tpu.ops import msm_host
 from aes_zero_knowledge_proof_circuit_tpu.ops.curve_host import (
     g1_generator,
@@ -17,6 +16,7 @@ from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD, R_MOD
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import curve
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fq_ops, fr_ops
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils.native import native
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
     PackedPowers,
     pack_points,
@@ -35,8 +35,8 @@ def rand_scalars(seed: int, n: int):
 
 @pytest.fixture(scope="module")
 def packed():
-    out = native.g1_powers_fixed_base_packed(g1_generator(),
-                                             rand_scalars(1, MAX_N))
+    out = native().g1_powers_fixed_base_packed(g1_generator(),
+                                               rand_scalars(1, MAX_N))
     assert out is not None, "native zkhost library unavailable"
     return out
 
@@ -54,8 +54,8 @@ def test_msm_matches_host_and_native(packed, n):
     got = M.msm(M.points_from_packed(pk, "cpu"), F.from_ints(sc, "cpu",
                                                              mont=False))
     assert got == msm_host.msm(list(PackedPowers(pk)), sc)
-    u64 = native.pack_scalars(sc)
-    assert got == native.g1_msm_packed(pk, u64)
+    u64 = native().pack_scalars(sc)
+    assert got == native().g1_msm_packed(pk, u64)
 
 
 def test_msm_all_zero_and_infinity_points(packed):
