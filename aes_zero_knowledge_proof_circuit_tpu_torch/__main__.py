@@ -1,8 +1,8 @@
 """End-to-end example: synthesize keys, prove, compute the ciphertext,
 verify; exits non-zero when verification fails.
 
-    python -m aes_zero_knowledge_proof_circuit_tpu_torch --device cuda \
-        [--message TEXT] [--hex-key HEX]
+    python -m aes_zero_knowledge_proof_circuit_tpu_torch \
+        [--message TEXT] [--hex-key HEX] [--device cuda]
 """
 
 from __future__ import annotations
@@ -22,8 +22,9 @@ def main(argv=None) -> int:
                     help="plaintext (length must be a multiple of 16)")
     ap.add_argument("--hex-key", default="2b7e151628aed2a6abf7158809cf4f3c",
                     help="AES-128 key as 32 hex chars")
-    ap.add_argument("--device", required=True,
-                    help="torch device holding the proving state, e.g. cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device holding the proving state (default "
+                         "cuda; cpu runs the plain versions of the kernels)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 

@@ -5,10 +5,14 @@
     verify_encryption(verifying_key, proof, ciphertext) -> bool
     compute_ciphertext(message, secret_key) -> bytes
 
-The proving state lives on the device given to `synthesize_keys`; nothing
-picks a device on its own. Proofs, verifying keys, templates and SRS
-checkpoints are the JAX package's own formats (shared host code), so a
-proof from either package verifies with the same verifier. ECB only: CBC,
+The proving state lives on the CUDA card unless `synthesize_keys` is given
+another device; without a card it raises. The host code (circuit, KZG
+types, transcript, verifier, serialization) is this package's own copy of
+the JAX package's, so proofs and verifying keys have the same bytes in both
+packages and a proof from either verifies with the other's verifier.
+Templates and indexed keys are cached under names of this package's own
+(`tpl_torch_*`, `pk_torch_*`), since their pickles name this package's
+classes; SRS checkpoints are plain arrays and shared. ECB only: CBC,
 `encrypt_batch` and multi-device meshes raise NotPortedError.
 """
 
@@ -25,22 +29,19 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.marlin import indexer as _indexer
-from aes_zero_knowledge_proof_circuit_tpu.marlin import verifier as _verifier
-from aes_zero_knowledge_proof_circuit_tpu.marlin.indexer import (
-    MarlinProvingKey,
-    MarlinVerifyingKey,
-)
-from aes_zero_knowledge_proof_circuit_tpu.marlin.prover import MarlinProof
-from aes_zero_knowledge_proof_circuit_tpu.models.aes_circuit import (
-    Template,
-    build_template,
-)
-from aes_zero_knowledge_proof_circuit_tpu.ops import kzg
-from aes_zero_knowledge_proof_circuit_tpu.ops.aes_host import encrypt_ecb
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
-from aes_zero_knowledge_proof_circuit_tpu.utils.config import CONFIG
-from aes_zero_knowledge_proof_circuit_tpu.utils.errors import (
+from .marlin import indexer as _indexer
+from .marlin import verifier as _verifier
+from .marlin.indexer import MarlinProvingKey, MarlinVerifyingKey
+from .marlin.prover import MarlinProof, TorchProver
+from .models.aes_circuit import Template, build_template
+from .ops import kzg
+from .ops.aes_host import encrypt_ecb
+from .ops.field_params import R_MOD
+from .ops.witness import WitnessEvaluator
+from .utils import srs as _srs
+from .utils.config import CONFIG
+from .utils.device import resolve_device
+from .utils.errors import (
     CapacityError,
     InvalidInputError,
     ProofError,
@@ -49,17 +50,8 @@ from aes_zero_knowledge_proof_circuit_tpu.utils.errors import (
     ZkAesError,
     require,
 )
-from aes_zero_knowledge_proof_circuit_tpu.utils.rng import generate_rand
-from aes_zero_knowledge_proof_circuit_tpu.utils.serialize import (
-    deserialize_proof,
-    save_srs,
-    serialize_proof,
-)
-
-from .marlin import indexer as _tindexer
-from .marlin.prover import TorchProver
-from .ops.witness import WitnessEvaluator
-from .utils import srs as _srs
+from .utils.rng import generate_rand
+from .utils.serialize import deserialize_proof, save_srs, serialize_proof
 
 Fr = R_MOD
 
@@ -73,8 +65,8 @@ __all__ = [
 
 log = logging.getLogger(__name__)
 
-TEMPLATE_VERSION = 1   # shared with the JAX package's template cache
-INDEX_VERSION = 1
+TEMPLATE_VERSION = 1
+INDEX_VERSION = 2   # 2: keys pickle this package's own vk classes
 
 
 class NotPortedError(ZkAesError, NotImplementedError):
@@ -97,7 +89,7 @@ def bits_lsb_first(data: bytes) -> List[int]:
 
 
 def _template_cached(msg_len: int) -> Template:
-    path = CONFIG.template_dir / f"aes128_ecb_{msg_len}_v{TEMPLATE_VERSION}.pkl"
+    path = CONFIG.template_dir / f"tpl_torch_ecb_{msg_len}_v{TEMPLATE_VERSION}.pkl"
     if path.exists():
         with open(path, "rb") as f:
             return pickle.load(f)
@@ -153,7 +145,7 @@ def _indexed_pk_cached(msg_len: int, tpl: Template, srs: kzg.SRS, device,
     """The port's indexer with a disk checkpoint of everything but the SRS,
     under its own name prefix (pk_torch_)."""
     if not use_disk_cache:
-        return _tindexer.index(tpl.r1cs, srs, device)
+        return _indexer.index(tpl.r1cs, srs, device)
     path = CONFIG.template_dir / (
         f"pk_torch_ecb_{msg_len}_v{TEMPLATE_VERSION}_srs{srs.max_degree}"
         f"_{_srs_digest(srs)}_ix{INDEX_VERSION}.pkl")
@@ -168,7 +160,7 @@ def _indexed_pk_cached(msg_len: int, tpl: Template, srs: kzg.SRS, device,
         pk.coo_np = state["coo_np"]
         pk.torch_points = _srs.device_powers(srs, device)
         return pk
-    pk = _tindexer.index(tpl.r1cs, srs, device)
+    pk = _indexer.index(tpl.r1cs, srs, device)
     state = dict(vk=pk.vk, log_n=pk.log_n, log_x=pk.log_x,
                  var_to_slot=pk.var_to_slot, matrices=pk.matrices,
                  coo_np=pk.coo_np)
@@ -181,17 +173,17 @@ def _indexed_pk_cached(msg_len: int, tpl: Template, srs: kzg.SRS, device,
 
 def synthesize_keys(plaintext_length: int, rng=None,
                     srs: Optional[kzg.SRS] = None, mode: str = "ecb", *,
-                    device) -> Tuple[AESProvingKey, MarlinVerifyingKey]:
+                    device="cuda") -> Tuple[AESProvingKey, MarlinVerifyingKey]:
     """Trusted setup and circuit indexing, with the proving state on
-    `device`. The SRS is sized from the template, generated once by the
-    native tier and checkpointed."""
+    `device` (the CUDA card by default). The SRS is sized from the template,
+    generated once by the native tier and checkpointed."""
     require(plaintext_length > 0 and plaintext_length % 16 == 0,
             InvalidInputError,
             f"plaintext_length must be a positive multiple of 16, got "
             f"{plaintext_length}")
     if mode != "ecb":
         raise NotPortedError(f"mode={mode!r}: only ECB is ported")
-    device = torch.device(device)
+    device = resolve_device(device)
     rng = rng or generate_rand()
     times = {}
     t0 = time.perf_counter()

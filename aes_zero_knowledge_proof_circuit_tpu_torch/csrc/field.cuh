@@ -1,5 +1,6 @@
-// Montgomery arithmetic over the BLS12-377 prime fields, shared by the three
-// kernels (fr_ops.cu, ntt.cu, msm.cu).
+// Montgomery arithmetic over the BLS12-377 prime fields, shared by the
+// kernels (fr_ops.cu, ntt.cu, fq_cols.cu; msm.cu and msm_u8.cu use the PTX
+// Fq functions at the end).
 //
 // An element is L little-endian u32 limbs of a*R mod p, fully reduced below p:
 //   Fr: L = 8,  R = 2^256  (p = r, 253 bits)
@@ -145,4 +146,204 @@ template <int L>
 ZK_DEV void zk_store(uint32_t* dst, const uint32_t* src) {
 #pragma unroll
   for (int j = 0; j < L; ++j) dst[j] = src[j];
+}
+
+// -- Fq with PTX carry chains (kernels K3 and K4) ------------------------------
+//
+// The same Montgomery-384 arithmetic as zk_mul<Fq> / zk_add<Fq> / zk_sub<Fq>
+// above (fully reduced limbs, R = 2^384), written with mad.lo.cc / madc.hi.cc
+// carry chains and the modulus as immediates: each row of the CIOS product is
+// four chains (a * b_i low and high halves, m * q low and high halves). With
+// a, b < q < 2^377 the running value stays below 2^410, so 13 limbs hold it
+// and no chain loses a carry; one conditional subtraction ends the product.
+// Each chain is one asm statement, so no instruction can come between the
+// carry-out of one limb and the carry-in of the next.
+
+// t[0..12] += a * bi (two carry chains: low then high halves)
+ZK_DEV void fq_mac_row(uint32_t* t, const uint32_t* a, uint32_t bi) {
+  asm("{\n\t"
+      "mad.lo.cc.u32 %0, %13, %25, %0;\n\t"
+      "madc.lo.cc.u32 %1, %14, %25, %1;\n\t"
+      "madc.lo.cc.u32 %2, %15, %25, %2;\n\t"
+      "madc.lo.cc.u32 %3, %16, %25, %3;\n\t"
+      "madc.lo.cc.u32 %4, %17, %25, %4;\n\t"
+      "madc.lo.cc.u32 %5, %18, %25, %5;\n\t"
+      "madc.lo.cc.u32 %6, %19, %25, %6;\n\t"
+      "madc.lo.cc.u32 %7, %20, %25, %7;\n\t"
+      "madc.lo.cc.u32 %8, %21, %25, %8;\n\t"
+      "madc.lo.cc.u32 %9, %22, %25, %9;\n\t"
+      "madc.lo.cc.u32 %10, %23, %25, %10;\n\t"
+      "madc.lo.cc.u32 %11, %24, %25, %11;\n\t"
+      "addc.u32 %12, %12, 0;\n\t"
+      "}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]), "r"(bi));
+  asm("{\n\t"
+      "mad.hi.cc.u32 %0, %12, %24, %0;\n\t"
+      "madc.hi.cc.u32 %1, %13, %24, %1;\n\t"
+      "madc.hi.cc.u32 %2, %14, %24, %2;\n\t"
+      "madc.hi.cc.u32 %3, %15, %24, %3;\n\t"
+      "madc.hi.cc.u32 %4, %16, %24, %4;\n\t"
+      "madc.hi.cc.u32 %5, %17, %24, %5;\n\t"
+      "madc.hi.cc.u32 %6, %18, %24, %6;\n\t"
+      "madc.hi.cc.u32 %7, %19, %24, %7;\n\t"
+      "madc.hi.cc.u32 %8, %20, %24, %8;\n\t"
+      "madc.hi.cc.u32 %9, %21, %24, %9;\n\t"
+      "madc.hi.cc.u32 %10, %22, %24, %10;\n\t"
+      "madc.hi.cc.u32 %11, %23, %24, %11;\n\t"
+      "}"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]), "r"(bi));
+}
+
+// t[0..12] += m * q, m = -t[0] mod 2^32 (so t[0] becomes 0), then the
+// shift by one limb: t = (t + m q) / 2^32
+ZK_DEV void fq_reduce_row(uint32_t* t) {
+  uint32_t m = 0u - t[0];   // t[0] * (-q^-1 mod 2^32); q = 1 mod 2^32
+  asm("{\n\t"
+      "mad.lo.cc.u32 %0, %13, 0x00000001, %0;\n\t"
+      "madc.lo.cc.u32 %1, %13, 0x8508c000, %1;\n\t"
+      "madc.lo.cc.u32 %2, %13, 0x30000000, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, 0x170b5d44, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, 0xba094800, %4;\n\t"
+      "madc.lo.cc.u32 %5, %13, 0x1ef3622f, %5;\n\t"
+      "madc.lo.cc.u32 %6, %13, 0x00f5138f, %6;\n\t"
+      "madc.lo.cc.u32 %7, %13, 0x1a22d9f3, %7;\n\t"
+      "madc.lo.cc.u32 %8, %13, 0x6ca1493b, %8;\n\t"
+      "madc.lo.cc.u32 %9, %13, 0xc63b05c0, %9;\n\t"
+      "madc.lo.cc.u32 %10, %13, 0x17c510ea, %10;\n\t"
+      "madc.lo.cc.u32 %11, %13, 0x01ae3a46, %11;\n\t"
+      "addc.u32 %12, %12, 0;\n\t"
+      "}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(m));
+  asm("{\n\t"
+      "mad.hi.cc.u32 %0, %12, 0x00000001, %0;\n\t"
+      "madc.hi.cc.u32 %1, %12, 0x8508c000, %1;\n\t"
+      "madc.hi.cc.u32 %2, %12, 0x30000000, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, 0x170b5d44, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, 0xba094800, %4;\n\t"
+      "madc.hi.cc.u32 %5, %12, 0x1ef3622f, %5;\n\t"
+      "madc.hi.cc.u32 %6, %12, 0x00f5138f, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, 0x1a22d9f3, %7;\n\t"
+      "madc.hi.cc.u32 %8, %12, 0x6ca1493b, %8;\n\t"
+      "madc.hi.cc.u32 %9, %12, 0xc63b05c0, %9;\n\t"
+      "madc.hi.cc.u32 %10, %12, 0x17c510ea, %10;\n\t"
+      "madc.hi.cc.u32 %11, %12, 0x01ae3a46, %11;\n\t"
+      "}"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(m));
+#pragma unroll
+  for (int j = 0; j < 12; ++j) t[j] = t[j + 1];
+  t[12] = 0;
+}
+
+// out = x - q if x >= q, else x (x < 2q, 12 limbs)
+ZK_DEV void fq_sub_q(uint32_t* out, const uint32_t* x) {
+  uint32_t d[12], bw;
+  asm("{\n\t"
+      "sub.cc.u32 %0, %13, 0x00000001;\n\t"
+      "subc.cc.u32 %1, %14, 0x8508c000;\n\t"
+      "subc.cc.u32 %2, %15, 0x30000000;\n\t"
+      "subc.cc.u32 %3, %16, 0x170b5d44;\n\t"
+      "subc.cc.u32 %4, %17, 0xba094800;\n\t"
+      "subc.cc.u32 %5, %18, 0x1ef3622f;\n\t"
+      "subc.cc.u32 %6, %19, 0x00f5138f;\n\t"
+      "subc.cc.u32 %7, %20, 0x1a22d9f3;\n\t"
+      "subc.cc.u32 %8, %21, 0x6ca1493b;\n\t"
+      "subc.cc.u32 %9, %22, 0xc63b05c0;\n\t"
+      "subc.cc.u32 %10, %23, 0x17c510ea;\n\t"
+      "subc.cc.u32 %11, %24, 0x01ae3a46;\n\t"
+      "subc.u32 %12, 0, 0;\n\t"
+      "}"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(bw)
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]), "r"(x[6]), "r"(x[7]), "r"(x[8]), "r"(x[9]), "r"(x[10]), "r"(x[11]));
+#pragma unroll
+  for (int j = 0; j < 12; ++j) out[j] = bw ? x[j] : d[j];
+}
+
+// a + b mod q
+ZK_DEV void fq_add(uint32_t* out, const uint32_t* a, const uint32_t* b) {
+  uint32_t s[12];
+  asm("{\n\t"
+      "add.cc.u32 %0, %12, %24;\n\t"
+      "addc.cc.u32 %1, %13, %25;\n\t"
+      "addc.cc.u32 %2, %14, %26;\n\t"
+      "addc.cc.u32 %3, %15, %27;\n\t"
+      "addc.cc.u32 %4, %16, %28;\n\t"
+      "addc.cc.u32 %5, %17, %29;\n\t"
+      "addc.cc.u32 %6, %18, %30;\n\t"
+      "addc.cc.u32 %7, %19, %31;\n\t"
+      "addc.cc.u32 %8, %20, %32;\n\t"
+      "addc.cc.u32 %9, %21, %33;\n\t"
+      "addc.cc.u32 %10, %22, %34;\n\t"
+      "addc.u32 %11, %23, %35;\n\t"
+      "}"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]), "=r"(s[6]), "=r"(s[7]), "=r"(s[8]), "=r"(s[9]), "=r"(s[10]), "=r"(s[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]), "r"(b[8]), "r"(b[9]), "r"(b[10]), "r"(b[11]));
+  fq_sub_q(out, s);
+}
+
+// a - b mod q
+ZK_DEV void fq_sub(uint32_t* out, const uint32_t* a, const uint32_t* b) {
+  uint32_t d[12], bw, qm[12];
+  asm("{\n\t"
+      "sub.cc.u32 %0, %13, %25;\n\t"
+      "subc.cc.u32 %1, %14, %26;\n\t"
+      "subc.cc.u32 %2, %15, %27;\n\t"
+      "subc.cc.u32 %3, %16, %28;\n\t"
+      "subc.cc.u32 %4, %17, %29;\n\t"
+      "subc.cc.u32 %5, %18, %30;\n\t"
+      "subc.cc.u32 %6, %19, %31;\n\t"
+      "subc.cc.u32 %7, %20, %32;\n\t"
+      "subc.cc.u32 %8, %21, %33;\n\t"
+      "subc.cc.u32 %9, %22, %34;\n\t"
+      "subc.cc.u32 %10, %23, %35;\n\t"
+      "subc.cc.u32 %11, %24, %36;\n\t"
+      "subc.u32 %12, 0, 0;\n\t"
+      "}"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(bw)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]), "r"(b[8]), "r"(b[9]), "r"(b[10]), "r"(b[11]));
+  // add q back on a borrow
+  qm[0] = 0x00000001u & bw;
+  qm[1] = 0x8508c000u & bw;
+  qm[2] = 0x30000000u & bw;
+  qm[3] = 0x170b5d44u & bw;
+  qm[4] = 0xba094800u & bw;
+  qm[5] = 0x1ef3622fu & bw;
+  qm[6] = 0x00f5138fu & bw;
+  qm[7] = 0x1a22d9f3u & bw;
+  qm[8] = 0x6ca1493bu & bw;
+  qm[9] = 0xc63b05c0u & bw;
+  qm[10] = 0x17c510eau & bw;
+  qm[11] = 0x01ae3a46u & bw;
+  asm("{\n\t"
+      "add.cc.u32 %0, %12, %24;\n\t"
+      "addc.cc.u32 %1, %13, %25;\n\t"
+      "addc.cc.u32 %2, %14, %26;\n\t"
+      "addc.cc.u32 %3, %15, %27;\n\t"
+      "addc.cc.u32 %4, %16, %28;\n\t"
+      "addc.cc.u32 %5, %17, %29;\n\t"
+      "addc.cc.u32 %6, %18, %30;\n\t"
+      "addc.cc.u32 %7, %19, %31;\n\t"
+      "addc.cc.u32 %8, %20, %32;\n\t"
+      "addc.cc.u32 %9, %21, %33;\n\t"
+      "addc.cc.u32 %10, %22, %34;\n\t"
+      "addc.u32 %11, %23, %35;\n\t"
+      "}"
+      : "=r"(out[0]), "=r"(out[1]), "=r"(out[2]), "=r"(out[3]), "=r"(out[4]), "=r"(out[5]), "=r"(out[6]), "=r"(out[7]), "=r"(out[8]), "=r"(out[9]), "=r"(out[10]), "=r"(out[11])
+      : "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3]), "r"(d[4]), "r"(d[5]), "r"(d[6]), "r"(d[7]), "r"(d[8]), "r"(d[9]), "r"(d[10]), "r"(d[11]), "r"(qm[0]), "r"(qm[1]), "r"(qm[2]), "r"(qm[3]), "r"(qm[4]), "r"(qm[5]), "r"(qm[6]), "r"(qm[7]), "r"(qm[8]), "r"(qm[9]), "r"(qm[10]), "r"(qm[11]));
+}
+
+// a * b * 2^-384 mod q; out may alias a or b
+ZK_DEV void fq_mul(uint32_t* out, const uint32_t* a, const uint32_t* b) {
+  uint32_t t[13];
+#pragma unroll
+  for (int j = 0; j < 13; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    fq_mac_row(t, a, b[i]);
+    fq_reduce_row(t);
+  }
+  fq_sub_q(out, t);
 }

@@ -4,8 +4,8 @@
 //   (pallas_call in _scan_call), together with the XLA tail scatter, lane
 //   merge and suffix fold of _bucket_tables and _suffix_fold that turn its
 //   scan streams into window sums.
-// Bound on this card: integer multiplies, as K3. A mixed Jacobian add is 11
-//   Fq products of 12x12 limbs against 96 B of point data; the scan is
+// Bound on this card: integer multiplies, as K3. A mixed XYZZ add is 10 Fq
+//   products of 12x12 limbs against 96 B of point data; the scan is
 //   n * 32 such adds per MSM, and it needs enough threads to keep the
 //   multiply pipes busy.
 // Design: B5's own work split. The caller (ops/msm_pallas.land) sorts each
@@ -22,16 +22,22 @@
 //   Digit 0 is the dump bucket: its pairs are skipped and leave no tail.
 //   The tails of one bucket from adjacent lanes can be equal or opposite
 //   points, so the lane merge sums them with the complete adds of the shared
-//   reduction passes (curve.cuh), which then fold the buckets:
-//   sum_{j>=1} sum_{d>=j} B_d = sum_d d B_d, as chunked running sums.
+//   reduction (curve.cuh), which then folds the buckets,
+//   sum_{j>=1} sum_{d>=j} B_d = sum_d d B_d, by slices and offset-doubling
+//   trees, and the 32 windows by the Horner ladder (c = 8): K4 returns the
+//   MSM as one XYZZ point, as K3 does.
 #include "curve.cuh"
 
 namespace {
 
 // One thread per (window w, lane j). points: [N, 2, 12] affine Montgomery;
 // order/digits: [W, steps, lanes] point index and digit of each sorted pair;
-// lane_base[t]: the first tail slot of lane t = w * lanes + j.
-__global__ void lane_scan(const uint32_t* __restrict__ points,
+// lane_base[t]: the first tail slot of lane t = w * lanes + j. Four blocks of
+// 128 an SM, as K3's accumulation: 128 registers and no spills; on an H100
+// the scan at 2^20 took 26.557 ms against 30.502 ms at three blocks an SM
+// (167 registers; scripts/k3_variants.py).
+__global__ void __launch_bounds__(128, 4)
+lane_scan(const uint32_t* __restrict__ points,
                           const int* __restrict__ order,
                           const uint8_t* __restrict__ digits, int lanes,
                           int steps, long long n_lanes,
@@ -43,42 +49,41 @@ __global__ void lane_scan(const uint32_t* __restrict__ points,
   long long j = t - w * lanes;
   long long k = w * steps * lanes + j;
   long long slot = lane_base[t];
-  Jac acc;
+  Xyzz acc;
   set_inf(acc);
   int prev = 0;
   for (int s = 0; s < steps; ++s, k += lanes) {
     int d = digits[k];
     if (d != prev) {
       if (prev != 0) {
-        store_jac(tails + slot * 3 * L, acc);
+        store_pt(tails + slot * PW, acc);
         ++slot;
         set_inf(acc);
       }
       prev = d;
     }
     if (d == 0) continue;
-    const uint32_t* pt = points + (long long)order[k] * 2 * L;
     uint32_t qx[L], qy[L];
-    zk_load<L>(qx, pt);
-    zk_load<L>(qy, pt + L);
-    if (zk_is_zero<Fq>(qx) && zk_is_zero<Fq>(qy)) continue;
-    jac_madd(acc, qx, qy);
+    if (!load_affine(qx, qy, points + (long long)order[k] * 2 * L)) continue;
+    xyzz_madd(acc, qx, qy);
   }
-  if (prev != 0) store_jac(tails + slot * 3 * L, acc);
+  if (prev != 0) store_pt(tails + slot * PW, acc);
 }
 
 }  // namespace
 
-// Runs the scan and the reduction passes on `stream`. tails: [n_tails, 3,
+// Runs the scan and the reduction on `stream`. tails: [max(1, n_tails), 4,
 // 12] scratch; first: [W*256 + 1] tail offsets of bucket w*256 + d - 1;
-// bucket_scratch [W*256, 3, 12], chunk_scratch [W*(256/chunk), 2, 3, 12];
-// out: [W, 3, 12] Jacobian window sums in Montgomery form.
+// merge_prefix, merge_passes, block_sums, window_sums, counters (zeroed)
+// and out as reduce_msm takes them; out: the MSM as one XYZZ point [4, 12]
+// in Montgomery form.
 extern "C" int zk_msm_u8(const void* points, const void* order,
                          const void* digits, int windows, int lanes,
                          int steps, const void* lane_base, const void* first,
-                         int chunk, int log_chunk, void* tails,
-                         void* bucket_scratch, void* chunk_scratch, void* out,
-                         void* stream) {
+                         const void* merge_prefix, long long n_tails,
+                         int merge_passes, int slice_log, int block_log,
+                         void* tails, void* block_sums, void* window_sums,
+                         void* counters, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int threads = 128;
   long long n_lanes = (long long)windows * lanes;
@@ -87,6 +92,7 @@ extern "C" int zk_msm_u8(const void* points, const void* order,
       lanes, steps, n_lanes, (const long long*)lane_base, (uint32_t*)tails);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  return reduce_buckets(tails, first, windows, 256, chunk, log_chunk,
-                        bucket_scratch, chunk_scratch, out, s);
+  return reduce_msm(tails, merge_prefix, n_tails, first, merge_passes, windows,
+                    256, 8, slice_log, block_log, block_sums, window_sums,
+                    counters, out, s);
 }

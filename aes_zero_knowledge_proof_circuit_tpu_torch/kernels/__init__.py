@@ -4,7 +4,8 @@ Every `csrc/*.cu` file compiles in its own nvcc process, all started
 together, and one more nvcc call links the objects into a shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers). The
 library lands in `build/torch_kernels/` at the repository root, named by a
-hash of the sources, and is built on first use.
+hash of the sources, and is built on first use. ptxas's report of each
+kernel's registers and spills lands beside it (`resource_usage()`).
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.__call__` raises when that is not 0 and counts
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,9 +41,10 @@ _SIGNATURES = {
     "zk_field_add": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "zk_field_sub": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "zk_ntt_stage": [_P, _P, _LL, _LL, _P],
-    "zk_msm_g1": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _P, _P, _P,
-                  _P, _P],
-    "zk_msm_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "zk_msm_g1": [_P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
+                  _P, _P, _P, _P, _P, _P],
+    "zk_msm_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _I, _P,
+                  _P, _P, _P, _P, _P],
     "zk_fq_cols_mul": [_P, _P, _P, _P, _LL, _P],
 }
 
@@ -97,21 +100,28 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _run(procs) -> None:
+def _run(procs) -> str:
     """Wait for every (name, Popen); raise with the errors of any that
-    failed."""
-    errors = []
+    failed, else return their standard errors, each under `== name`."""
+    errors, logs = [], []
     for name, proc in procs:
         _out, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc {name} failed ({proc.returncode}):\n"
                           f"{err[-4000:]}")
+        logs.append(f"== {name}\n{err}")
     if errors:
         raise KernelError("\n".join(errors))
+    return "\n".join(logs)
+
+
+def _ptxas_log(so: Path) -> Path:
+    return so.with_suffix(".ptxas.txt")
 
 
 def _build(so: Path) -> None:
-    """One nvcc per source, all at once, then one link into `so`."""
+    """One nvcc per source, all at once, then one link into `so`; ptxas's
+    verbose report of the compiles goes to _ptxas_log(so)."""
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
     objs, procs = [], []
@@ -119,11 +129,12 @@ def _build(so: Path) -> None:
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         objs.append(obj)
         procs.append((src.name, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+             str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     tmp = BUILD_DIR / f"{tag}.tmp"
     try:
-        _run(procs)
+        _ptxas_log(so).write_text(_run(procs))
         _run([("link", subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
              *[str(o) for o in objs]],
@@ -154,6 +165,46 @@ def library() -> _Library:
             seconds = time.perf_counter() - t0
         _LIB = _Library(so, seconds)
         return _LIB
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_LENGTH = re.compile(r"\d+")
+
+
+def _demangle(name: str) -> str:
+    """The kernel's own name, the last part of a mangled symbol's nested
+    name (`_ZN<len><namespace><len><kernel>E...`); the symbol itself if it
+    is not mangled."""
+    if not name.startswith("_Z"):
+        return name
+    i, last = (3 if name.startswith("_ZN") else 2), name
+    while m := _LENGTH.match(name, i):
+        i = m.end() + int(m[0])
+        last = name[m.end():i]
+    return last
+
+
+def resource_usage() -> list:
+    """(source, kernel, registers, spill store bytes, spill load bytes) of
+    every kernel of the loaded library, in ptxas's order, from the report of
+    its build (empty for a library built before reports were kept)."""
+    log = _ptxas_log(library().path)
+    if not log.exists():
+        return []
+    rows, src, entry, spills = [], "", None, (0, 0)
+    for line in log.read_text().splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif m := _ENTRY.search(line):
+            entry, spills = _demangle(m[1]), (0, 0)
+        elif entry and (m := _SPILL.search(line)):
+            spills = (int(m[1]), int(m[2]))
+        elif entry and (m := _REGS.search(line)):
+            rows.append((src, entry, int(m[1]), *spills))
+            entry = None
+    return rows
 
 
 # the kernels, one per source file; fr_ops counts mul, add and sub launches

@@ -7,33 +7,112 @@ ops/msm_device.py), as index_jax commits through msm_device. The returned
 MarlinProvingKey has numpy-backed matrices (slots int64, values signed) and
 no host coefficient lists; it carries the COO arrays (`coo_np`) and the SRS
 powers already on the device (`torch_points`) for TorchProver.
+
+The key dataclasses (`MatrixIndex`, `MarlinVerifyingKey`,
+`MarlinProvingKey`) and `required_degree` are those of the host indexer,
+field for field, so keys and proofs serialize to the same bytes.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List
 
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.marlin.indexer import (
-    MarlinProvingKey,
-    MarlinVerifyingKey,
-    MatrixIndex,
-    _next_pow2_log,
-)
-from aes_zero_knowledge_proof_circuit_tpu.models.r1cs import R1CS
-from aes_zero_knowledge_proof_circuit_tpu.ops import kzg
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
-from aes_zero_knowledge_proof_circuit_tpu.ops.poly_host import domain
-
+from ..models.r1cs import R1CS
+from ..ops import kzg
 from ..ops import poly as P
 from ..ops.field import fr_ops
+from ..ops.field_params import R_MOD
 from ..ops.msm_device import DevicePoints, digit_limbs, msm_device
+from ..ops.poly_host import domain
+from ..utils.device import resolve_device
 from ..utils.srs import device_powers
+from ..utils.transcript import Transcript
 from .prover import _small_to_mont, coo_arrays, to_msm_digits
 
 F = fr_ops()
+
+
+def _next_pow2_log(x: int) -> int:
+    return max(1, (max(1, x) - 1).bit_length())
+
+
+@dataclass
+class MatrixIndex:
+    log_k: int
+    nnz: int
+    # COO over (constraint index, variable H-slot, value) — padded to |K|
+    row_slots: List[int]      # H slot indices (constraint rows)
+    col_slots: List[int]      # H slot indices (variable columns)
+    vals: List[int]           # raw matrix values
+    # K-domain evaluations (the interpolated polys' values on K)
+    row_evals: List[int]      # H element at row slot
+    col_evals: List[int]      # H element at col slot
+    val_evals: List[int]      # val * col_elt / n
+    # coefficient forms + commitments
+    row_coeffs: List[int]
+    col_coeffs: List[int]
+    val_coeffs: List[int]
+    comm_row: kzg.Commitment
+    comm_col: kzg.Commitment
+    comm_val: kzg.Commitment
+
+    @property
+    def k(self) -> int:
+        return 1 << self.log_k
+
+
+@dataclass
+class MarlinVerifyingKey:
+    kzg_vk: kzg.VerifierKey
+    log_n: int
+    log_x: int
+    num_instance: int
+    log_ks: List[int]          # per matrix A, B, C
+    max_degree: int
+    index_comms: List[kzg.Commitment]  # row,col,val for A,B,C (9)
+
+    def absorb_into(self, t: Transcript) -> None:
+        t.absorb_u64(b"log_n", self.log_n)
+        t.absorb_u64(b"log_x", self.log_x)
+        t.absorb_u64(b"num_instance", self.num_instance)
+        for lk in self.log_ks:
+            t.absorb_u64(b"log_k", lk)
+        t.absorb_u64(b"max_degree", self.max_degree)
+        for c in self.index_comms:
+            t.absorb_g1(b"index_comm", c.point)
+
+
+@dataclass
+class MarlinProvingKey:
+    srs: kzg.SRS
+    vk: MarlinVerifyingKey
+    r1cs: R1CS                 # finalized template
+    log_n: int
+    log_x: int
+    var_to_slot: List[int]     # z index -> H slot
+    matrices: List[MatrixIndex]
+
+    @property
+    def n(self) -> int:
+        return 1 << self.log_n
+
+    @property
+    def x_size(self) -> int:
+        return 1 << self.log_x
+
+
+def required_degree(num_constraints: int, num_variables: int, num_non_zero: int) -> int:
+    """Universal SRS degree for given capacity (reference analog:
+    generate_universal_srs(866_944, 513, 4_062_064), src/lib.rs:141)."""
+    log_n = _next_pow2_log(max(num_constraints, num_variables))
+    n = 1 << log_n
+    log_k = _next_pow2_log(num_non_zero)
+    k = 1 << log_k
+    return max(2 * n + 2, 2 * k)
 
 
 def var_slots(r1cs: R1CS):
@@ -54,8 +133,8 @@ def var_slots(r1cs: R1CS):
     return log_x, log_n, var_to_slot.tolist()
 
 
-def index(r1cs: R1CS, srs: kzg.SRS, device) -> MarlinProvingKey:
-    dev = torch.device(device)
+def index(r1cs: R1CS, srs: kzg.SRS, device="cuda") -> MarlinProvingKey:
+    dev = resolve_device(device)
     log_x, log_n, var_to_slot = var_slots(r1cs)
     n = 1 << log_n
     h = domain(log_n)

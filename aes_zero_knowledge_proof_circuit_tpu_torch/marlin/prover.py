@@ -14,8 +14,9 @@ opening proofs run on one of the JAX prover's two MSM engines, chosen by
 ops/msm.py (kernel K3, the counterpart of msm_mxu), "pallas" the 8-bit
 bucket scan of ops/msm_device.py (kernel K4, the counterpart of
 msm_device). Left unset, ZKAES_MSM_MXU=0 selects "pallas", as it does in
-prover_jax. The hiding terms stay on the host (two gamma powers), as in the
-reference.
+prover_jax. Each MSM leaves its point on the device; a batch of commitments
+comes to the host in one copy. The hiding terms stay on the host (two gamma
+powers), after the MSMs and in the same order, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,29 +25,25 @@ import logging
 import os
 import random as _random
 import time as _time
-from typing import List, Optional, Sequence
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.marlin.indexer import MarlinProvingKey
-from aes_zero_knowledge_proof_circuit_tpu.marlin.prover import MarlinProof
-from aes_zero_knowledge_proof_circuit_tpu.ops import kzg, msm_host
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import (
-    R_MOD,
-    fr_multiplicative_generator,
-)
-from aes_zero_knowledge_proof_circuit_tpu.ops.poly_host import (
-    domain,
-    poly_div_linear,
-)
-from aes_zero_knowledge_proof_circuit_tpu.utils.transcript import Transcript
-
+from ..ops import kzg, msm_host
 from ..ops import poly as P
 from ..ops.field import fr_ops
-from ..ops.msm import msm
-from ..ops.msm_device import DevicePoints, digit_limbs, msm_device
+from ..ops.field_params import R_MOD, fr_multiplicative_generator
+from ..ops.msm import msm_point, xyzz_to_affine
+from ..ops.msm_device import DevicePoints, digit_limbs, msm_device_point
+from ..ops.poly_host import domain, poly_div_linear
+from ..utils.device import resolve_device
 from ..utils.srs import device_powers
+from ..utils.transcript import Transcript
+
+if TYPE_CHECKING:
+    from .indexer import MarlinProvingKey
 
 F = fr_ops()
 L = F.L
@@ -56,6 +53,35 @@ log = logging.getLogger(__name__)
 
 
 MSM_ENGINES = ("mxu", "pallas")
+
+
+@dataclass
+class MarlinProof:
+    """Self-describing proof object (serializable via utils/serialize.py).
+
+    Reference analog: simpleworks::marlin::MarlinProof (SURVEY.md §2b).
+    """
+
+    # round commitments
+    comm_w: kzg.Commitment
+    comm_za: kzg.Commitment
+    comm_zb: kzg.Commitment
+    comm_s: kzg.Commitment
+    comm_t: kzg.Commitment
+    comm_g1: kzg.Commitment
+    comm_g1_shift: kzg.Commitment
+    comm_h1: kzg.Commitment
+    comm_g2: List[kzg.Commitment]        # per matrix
+    comm_g2_shift: List[kzg.Commitment]  # per matrix
+    comm_h2: List[kzg.Commitment]        # per matrix
+    sigmas: List[int]                    # per matrix inner-sumcheck sums
+    # evaluations at beta1 (H side): w, za, zb, s, t, g1, h1
+    evals_beta1: List[int]
+    # evaluations at beta2 (K side), per matrix: row, col, val, g2, h2
+    evals_beta2: List[List[int]]
+    # batched opening proofs
+    open_beta1: kzg.OpeningProof
+    open_beta2: kzg.OpeningProof
 
 
 def default_msm_engine() -> str:
@@ -141,10 +167,10 @@ class _StageTimer:
 class TorchProver:
     """Device-resident prover bound to one proving key and one device."""
 
-    def __init__(self, pk: MarlinProvingKey, device,
+    def __init__(self, pk: MarlinProvingKey, device="cuda",
                  msm_engine: Optional[str] = None):
         self.pk = pk
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.msm_engine = msm_engine or default_msm_engine()
         if self.msm_engine not in MSM_ENGINES:
             raise ValueError(f"msm_engine must be one of {MSM_ENGINES}, got "
@@ -195,23 +221,26 @@ class TorchProver:
 
     # -- commitments -------------------------------------------------------------
 
-    def _msm(self, offset: int, coeffs: torch.Tensor):
+    def _msm(self, offset: int, coeffs: torch.Tensor) -> torch.Tensor:
+        """The commitment MSM as one XYZZ point [4, 12] on the device."""
         points = self.srs_dev.slice(offset, coeffs.shape[0])
         scalars = to_msm_digits(coeffs)
         if self.msm_engine == "pallas":
-            return msm_device(points, digit_limbs(scalars))
-        return msm(points, scalars)
+            return msm_device_point(points, digit_limbs(scalars))
+        return msm_point(points, scalars)
 
     def _commit_batch(self, items, rng: Optional[_random.Random] = None):
         """items: (coeffs, offset, hiding). Hiding randomness is drawn first,
-        in item order, as prover_jax._commit_batch draws it."""
+        in item order, as prover_jax._commit_batch draws it. Every MSM of the
+        batch is enqueued before their points come to the host, in one copy."""
         rand_list = [
             [rng.randrange(R_MOD) for _ in range(2)] if hid else None
             for (_c, _off, hid) in items
         ]
+        points = xyzz_to_affine(torch.stack(
+            [self._msm(off, coeffs) for coeffs, off, _hid in items]))
         out = []
-        for (coeffs, off, _hid), rand_poly in zip(items, rand_list):
-            pt = self._msm(off, coeffs)
+        for pt, rand_poly in zip(points, rand_list):
             if rand_poly is not None:
                 pt = pt.add(msm_host.msm(self.pk.srs.gamma_powers_g1[:2],
                                          rand_poly))
@@ -483,7 +512,7 @@ class TorchProver:
         w_coeffs = self._open_quotient(
             [(p, off) for p, off, _r in polys],
             F.from_ints(xi_pows, self.device), z, max_len)
-        w_point = self._msm(0, w_coeffs)
+        w_point = xyzz_to_affine(self._msm(0, w_coeffs))[0]
         rand_eval = 0
         if any_rand:
             wr, rand_eval = poly_div_linear(comb_rand, z)

@@ -38,7 +38,21 @@ def select(cond: torch.Tensor, a: Jac, b: Jac) -> Jac:
 
 
 def jac_double(p: Jac) -> Jac:
-    """dbl-2009-l (a = 0); infinity stays infinity."""
+    """dbl-2009-l (a = 0); infinity stays infinity (its rows are skipped)."""
+    fin = ~is_inf(p)
+    if bool(fin.all()):
+        return _jac_double_finite(p)
+    if not bool(fin.any()):
+        return p
+    i = torch.nonzero(fin).reshape(-1)
+    d = _jac_double_finite(tuple(t[i] for t in p))
+    out = tuple(t.clone() for t in p)
+    for t, v in zip(out, d):
+        t[i] = v
+    return out
+
+
+def _jac_double_finite(p: Jac) -> Jac:
     x, y, z = p
     t = _mul(y, z)
     z3 = _add(t, t)
@@ -55,7 +69,7 @@ def jac_double(p: Jac) -> Jac:
     c8 = _add(c8, c8)
     c8 = _add(c8, c8)
     y3 = _sub(_mul(e, _sub(d, x3)), c8)
-    return select(is_inf(p), p, (x3, y3, z3))
+    return x3, y3, z3
 
 
 def _degenerate(p: Jac, out: Jac, h: torch.Tensor, rr: torch.Tensor) -> Jac:
@@ -95,7 +109,25 @@ def affine_add(p: Jac, q: Jac) -> Jac:
 
 
 def jac_add(p: Jac, q: Jac) -> Jac:
-    """p + q, both Jacobian (add-2007-bl)."""
+    """p + q, both Jacobian (add-2007-bl). Rows where either side is
+    infinity take the other side; the formula runs on the rest only (bucket
+    tables are mostly infinity at small sizes)."""
+    p_inf, q_inf = is_inf(p), is_inf(q)
+    out = select(p_inf, q, p)
+    both = ~(p_inf | q_inf)
+    if bool(both.all()):
+        return _jac_add_finite(p, q)
+    if bool(both.any()):
+        i = torch.nonzero(both).reshape(-1)
+        summed = _jac_add_finite(tuple(t[i] for t in p),
+                                 tuple(t[i] for t in q))
+        out = tuple(t.clone() for t in out)
+        for t, v in zip(out, summed):
+            t[i] = v
+    return out
+
+
+def _jac_add_finite(p: Jac, q: Jac) -> Jac:
     x1, y1, z1 = p
     x2, y2, z2 = q
     z1z1 = _mul(z1, z1)
@@ -116,9 +148,7 @@ def jac_add(p: Jac, q: Jac) -> Jac:
     x3 = _sub(_sub(_sub(_mul(r, r), j), v), v)
     sj = _mul(s1, j)
     y3 = _sub(_mul(r, _sub(v, x3)), _add(sj, sj))
-    out = _degenerate(p, (x3, y3, z3), h, rr)
-    out = select(is_inf(p), q, out)
-    return select(is_inf(q), p, out)
+    return _degenerate(p, (x3, y3, z3), h, rr)
 
 
 def run_sums(key: torch.Tensor, pts: Jac, n_out: int, affine: bool) -> Jac:

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD, R_MOD
+from .field_params import Q_MOD, R_MOD
 
 from .. import kernels
 

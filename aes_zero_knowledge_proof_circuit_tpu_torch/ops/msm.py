@@ -5,34 +5,39 @@
     scalars [n, 8] int32: standard-form Fr limbs (prover.to_msm_digits)
 
 Steps: signed c-bit digits and the per-window sort by bucket in torch
-(`signed_digits`, `bucket_runs`); bucket accumulation and bucket reduction
-in kernel K3 (csrc/msm.cu, wrapper `bucket_window_sums`), which returns one
-Jacobian sum per window; the window Horner ladder on the host, as
-msm_mxu.py does. The plain version of K3 (`plain_bucket_window_sums`) builds
-the same window sums from the plain curve formulas of ops/curve.py.
+(`signed_digits`, `bucket_runs`); then kernel K3 (csrc/msm.cu, wrapper
+`bucket_msm`): bucket accumulation in segments, and the reduction of
+csrc/curve.cuh (segment merge, bucket slices, offset multiples, sum trees,
+the window Horner ladder) down to the MSM as one XYZZ point [4, 12] that
+stays on the device. The host reads points only when it needs them
+(`xyzz_to_affine`): `msm` once per MSM, the prover once per batch of MSMs.
+
+The plain version (`plain_bucket_msm`) sums each bucket with the plain
+curve formulas of ops/curve.py (pairwise trees), then runs the kernel's
+reduction step for step (`plain_window_sums`: the same slices, offset
+multiples and sum trees, in Jacobian coordinates) and its ladder on host
+integers (`plain_horner`: one sequential row, where a plain tensor row op
+would cost milliseconds each).
 """
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
-
-from aes_zero_knowledge_proof_circuit_tpu.ops.curve_host import (
-    AffinePoint,
-    g1_infinity,
-    g1_point,
-)
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD
 
 from .. import kernels
 from ..utils.native import native
 from . import curve
+from .curve_host import AffinePoint, g1_infinity, g1_point
 from .field import fq_ops, to_u32
+from .field_params import Q_MOD
 
 FQ = fq_ops()
 SCALAR_BITS = 253
 MAX_WINDOW_BITS = 13
-SEGMENT = 128         # most sorted pairs one K3 thread adds in sequence
+SEGMENT = 32          # most sorted pairs one K3 thread adds in sequence
 
 
 def window_bits(n: int) -> int:
@@ -99,7 +104,9 @@ def bucket_runs(mags: torch.Tensor, negs: torch.Tensor, buckets: int):
     order = torch.argsort(key)
     idx = (order % n).to(torch.int32)
     neg = negs.reshape(-1)[order].to(torch.uint8)
-    counts = torch.bincount(key, minlength=w_count * (buckets + 1))
+    counts = torch.zeros(w_count * (buckets + 1), dtype=torch.int64,
+                         device=mags.device).index_add_(
+        0, key, torch.ones_like(key))
     offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
                           device=mags.device)
     offsets[1:] = torch.cumsum(counts, dim=0)
@@ -108,74 +115,124 @@ def bucket_runs(mags: torch.Tensor, negs: torch.Tensor, buckets: int):
 
 # -- K3 and its plain version -------------------------------------------------
 
-
-def _chunk(buckets: int) -> int:
-    """Buckets per thread in the reduction's first pass: about sqrt(B), so
-    the two running-sum passes are about equally long."""
-    return 1 << ((buckets.bit_length() - 1 + 1) // 2)
+MAX_BLOCK = 64   # threads of a reduction block (csrc/curve.cuh MAX_BLOCK)
 
 
-def bucket_window_sums(points: torch.Tensor, idx: torch.Tensor,
-                       neg: torch.Tensor, offsets: torch.Tensor,
-                       windows: int, buckets: int) -> torch.Tensor:
-    """K3 wrapper: [W, 3, 12] Jacobian window sums S_w = sum_b b * B_w,b
-    (Montgomery Fq). Plain version on CPU tensors, the kernel on CUDA."""
+def reduce_geometry(buckets: int):
+    """(slice_log, block_log) of the reduction over `buckets` buckets a
+    window: each thread sums a slice of 2^slice_log buckets, a block joins
+    2^block_log slices. Four buckets a thread from 1024 buckets up, so that
+    at 4096 buckets x 20 windows the 320 blocks of 64 threads are one wave
+    on the card (four blocks an SM at up to 255 registers), two from 128."""
+    slice_log = 2 if buckets >= 1024 else 1 if buckets >= 128 else 0
+    block_log = min(MAX_BLOCK.bit_length() - 1,
+                    buckets.bit_length() - 1 - slice_log)
+    return slice_log, block_log
+
+
+def merge_passes(most: int) -> int:
+    """Levels of the pairwise merge that joins up to `most` partial sums of
+    one bucket."""
+    return max(0, most - 1).bit_length()
+
+
+def merge_plan(first: torch.Tensor, passes: int) -> torch.Tensor:
+    """[passes, nb + 1] int64 from the [nb + 1] offsets of each bucket's
+    first partial sum: row p is the running count, over the buckets, of the
+    joins at merge level p (stride 2^p), where a bucket of m partial sums
+    has (m + 2^p - 1) >> (p + 1). The merge kernel's thread u does the u-th
+    join of its level."""
+    m = (first[1:] - first[:-1])[None, :]
+    step = 2 ** torch.arange(passes, dtype=torch.int64,
+                             device=first.device)[:, None]
+    out = torch.zeros((passes, m.shape[1] + 1), dtype=torch.int64,
+                      device=first.device)
+    out[:, 1:] = torch.cumsum((m + step - 1) // (2 * step), dim=1)
+    return out
+
+
+def _check_points(points: torch.Tensor) -> None:
     if points.dtype != torch.int32 or points.dim() != 3 or \
             points.shape[1:] != (2, FQ.L):
         raise ValueError(f"points must be [N, 2, 12] int32, got "
                          f"{tuple(points.shape)} {points.dtype}")
+
+
+def reduce_scratch(windows: int, buckets: int, device):
+    """(block_sums, window_sums, counters, out) for one reduction launch;
+    the counters start at zero."""
+    slice_log, block_log = reduce_geometry(buckets)
+    bpw = buckets >> (slice_log + block_log)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.int32,
+                                       device=device)
+    return (empty(windows * bpw, 4, FQ.L), empty(windows, 4, FQ.L),
+            torch.zeros(windows, dtype=torch.int32, device=device),
+            empty(4, FQ.L))
+
+
+def bucket_msm(points: torch.Tensor, idx: torch.Tensor, neg: torch.Tensor,
+               offsets: torch.Tensor, windows: int, buckets: int, c: int):
+    """K3 wrapper: (the MSM sum_w 2^(c w) S_w as one XYZZ point [4, 12],
+    the window sums S_w = sum_b b B_w,b as [W, 4, 12] XYZZ), Montgomery Fq.
+    Plain version on CPU tensors, the kernel on CUDA."""
+    _check_points(points)
     if offsets.shape[0] != windows * (buckets + 1) + 1:
         raise ValueError("offsets do not match windows x buckets")
     if points.device.type == "cpu":
-        return plain_bucket_window_sums(points, idx, neg, offsets, windows,
-                                        buckets)
+        return plain_bucket_msm(points, idx, neg, offsets, windows, buckets,
+                                c)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
     for t, dt in ((idx, torch.int32), (neg, torch.uint8),
                   (offsets, torch.int64)):
         if t.dtype != dt or t.device != points.device or not t.is_contiguous():
             raise ValueError(f"bad MSM run tensor {t.dtype} on {t.device}")
-    if idx.shape[0] and int(idx.max()) >= points.shape[0]:
-        raise ValueError("point index out of range")
     points = points.contiguous()
-    seg_lo, seg_hi, first = _segments(offsets, windows, buckets)
-    chunk = _chunk(buckets)
-    dev = points.device
-    seg_scratch = torch.empty((max(1, seg_lo.shape[0]), 3, FQ.L),
-                              dtype=torch.int32, device=dev)
-    bucket_scratch = torch.empty((windows * buckets, 3, FQ.L),
-                                 dtype=torch.int32, device=dev)
-    chunk_scratch = torch.empty((windows * (buckets // chunk), 2, 3, FQ.L),
-                                dtype=torch.int32, device=dev)
-    out = torch.empty((windows, 3, FQ.L), dtype=torch.int32, device=dev)
+    seg_lo, seg_hi, _owner, first = _segments(offsets, windows, buckets,
+                                              idx.shape[0])
+    slice_log, block_log = reduce_geometry(buckets)
+    seg_scratch = torch.empty((max(1, seg_lo.shape[0]), 4, FQ.L),
+                              dtype=torch.int32, device=points.device)
+    block_sums, wsums, counters, out = reduce_scratch(windows, buckets,
+                                                      points.device)
+    # a bucket holds at most the n pairs of its window
+    passes = merge_passes(-(-(idx.shape[0] // windows) // SEGMENT))
+    prefix = merge_plan(first, passes)
     kernels.msm_g1(points.data_ptr(), idx.data_ptr(), neg.data_ptr(),
-                   seg_lo.data_ptr(), seg_hi.data_ptr(), seg_lo.shape[0],
-                   first.data_ptr(), windows, buckets, chunk,
-                   chunk.bit_length() - 1, seg_scratch.data_ptr(),
-                   bucket_scratch.data_ptr(), chunk_scratch.data_ptr(),
-                   out.data_ptr())
-    return out
+                   seg_lo.data_ptr(), seg_hi.data_ptr(), prefix.data_ptr(),
+                   seg_lo.shape[0], first.data_ptr(), passes, windows,
+                   buckets, c, slice_log, block_log, seg_scratch.data_ptr(),
+                   block_sums.data_ptr(), wsums.data_ptr(),
+                   counters.data_ptr(), out.data_ptr())
+    return out, wsums
 
 
-def _segments(offsets: torch.Tensor, windows: int, buckets: int):
+def _segments(offsets: torch.Tensor, windows: int, buckets: int,
+              pairs: int):
     """Cut each bucket's run (buckets 1..B of every window) into segments of
-    at most SEGMENT pairs: (seg_lo, seg_hi) int64 bounds in the sorted pairs
-    and the [W*B + 1] int64 offsets of each bucket's first segment."""
+    at most SEGMENT pairs: (seg_lo, seg_hi) int64 bounds in the sorted
+    pairs, the bucket that owns each segment, and the [W*B + 1] int64
+    offsets of each bucket's first segment. The number of segments depends
+    on the data, so the bounds have room for the most there can be
+    (pairs / SEGMENT + W*B) and the rest are empty: no value comes back to
+    the host."""
+    seg = SEGMENT
+    dev = offsets.device
     runs = offsets.view(-1)
     starts = runs[:-1].view(windows, buckets + 1)[:, 1:].reshape(-1)
     counts = (runs[1:] - runs[:-1]).view(windows, buckets + 1)[:, 1:]
     counts = counts.reshape(-1)
-    nseg = (counts + SEGMENT - 1) // SEGMENT
-    first = torch.zeros(nseg.shape[0] + 1, dtype=torch.int64,
-                        device=offsets.device)
+    nseg = (counts + seg - 1) // seg
+    first = torch.zeros(nseg.shape[0] + 1, dtype=torch.int64, device=dev)
     first[1:] = torch.cumsum(nseg, dim=0)
-    owner = torch.repeat_interleave(
-        torch.arange(nseg.shape[0], device=offsets.device), nseg)
-    k = torch.arange(owner.shape[0], device=offsets.device) - first[owner]
-    seg_lo = (starts[owner] + k * SEGMENT).contiguous()
-    seg_hi = torch.minimum(seg_lo + SEGMENT,
-                           starts[owner] + counts[owner]).contiguous()
-    return seg_lo, seg_hi, first
+    cap = -(-pairs // seg) + windows * buckets
+    k = torch.arange(cap, device=dev)
+    owner = torch.searchsorted(first[1:], k, right=True).clamp_(
+        max=nseg.shape[0] - 1)
+    seg_lo = starts[owner] + (k - first[owner]) * seg
+    seg_hi = torch.minimum(seg_lo + seg, starts[owner] + counts[owner])
+    seg_hi = torch.where(k < first[-1], seg_hi, seg_lo)
+    return seg_lo.contiguous(), seg_hi.contiguous(), owner, first
 
 
 def plain_bucket_sums(points, idx, neg, offsets, windows: int, buckets: int):
@@ -198,84 +255,127 @@ def plain_bucket_sums(points, idx, neg, offsets, windows: int, buckets: int):
     return tuple(t[sel] for t in table)
 
 
-def plain_fold(bsum, windows: int, buckets: int) -> torch.Tensor:
-    """[W, 3, 12] window sums S = sum_j (j + 1) B_j from the bucket totals
-    [W*B] (bucket b at j = b - 1), in the two chunked running-sum passes of
-    csrc/msm.cu (`bucket_chunk_reduce`, `window_combine`)."""
+def add_multiple(acc, run, k: torch.Tensor):
+    """acc + k run per row (k >= 0 int64), by the kernel's double-and-add
+    from the top bit of k: rows whose k has fewer bits skip the leading
+    steps, as their threads do."""
+    m = run
+    top = int(k.max()).bit_length() - 1 if k.numel() else -1
+    for bit in range(top - 1, -1, -1):
+        live = (k >> (bit + 1)) != 0       # the top bit of k is above `bit`
+        d = curve.jac_double(m)
+        d = curve.select(((k >> bit) & 1).bool() & live, curve.jac_add(d, run),
+                         d)
+        m = curve.select(live, d, m)
+    return curve.select(k != 0, curve.jac_add(acc, m), acc)
+
+
+def add_tree(p, n: int):
+    """The kernel's sum tree over consecutive groups of n rows (n a power
+    of two): neighbours join pairwise, one add a level."""
+    while n > 1:
+        p = curve.jac_add(tuple(t[0::2] for t in p), tuple(t[1::2] for t in p))
+        n //= 2
+    return p
+
+
+def plain_window_sums(bsum, windows: int, buckets: int):
+    """Window sums S_w = sum_b b B_w,b (a Jacobian triple of [W, 12]) from
+    the bucket totals [W*B] (bucket b at b - 1), step for step as the
+    kernel's reduction: running sums over slices of 2^slice_log buckets
+    from the top bucket down, each slice's offset multiple k R, then the
+    sum tree over each block's slices and over each window's blocks."""
     dev = bsum[0].device
-    chunk = _chunk(buckets)
-    nch = buckets // chunk
-    # per (window, chunk) running sums from the top bucket down
-    cols = tuple(t.reshape(windows * nch, chunk, FQ.L) for t in bsum)
-    run = curve.infinity(windows * nch, dev)
-    acc = curve.infinity(windows * nch, dev)
-    for j in range(chunk - 1, -1, -1):
-        run = curve.jac_add(run, tuple(c[:, j] for c in cols))
+    slice_log, block_log = reduce_geometry(buckets)
+    s = 1 << slice_log
+    n = windows * buckets // s
+    cols = tuple(t.reshape(n, s, FQ.L) for t in bsum)
+    run = curve.infinity(n, dev)
+    acc = curve.infinity(n, dev)
+    for j in range(s - 1, -1, -1):
+        run = curve.jac_add(run, tuple(t[:, j] for t in cols))
         acc = curve.jac_add(acc, run)
-    a_c = tuple(t.reshape(windows, nch, FQ.L) for t in acc)
-    r_c = tuple(t.reshape(windows, nch, FQ.L) for t in run)
-    # S = sum_c A_c + CH * sum_c c R_c
-    run = curve.infinity(windows, dev)
-    acc = curve.infinity(windows, dev)
-    for c in range(nch - 1, 0, -1):
-        run = curve.jac_add(run, tuple(t[:, c] for t in r_c))
-        acc = curve.jac_add(acc, run)
-    for _ in range(chunk.bit_length() - 1):
-        acc = curve.jac_double(acc)
-    for c in range(nch):
-        acc = curve.jac_add(acc, tuple(t[:, c] for t in a_c))
-    return torch.stack(acc, dim=1)
+    k = (torch.arange(n, device=dev) % (buckets // s)) << slice_log
+    acc = add_multiple(acc, run, k)
+    acc = add_tree(acc, 1 << block_log)
+    return add_tree(acc, buckets >> (slice_log + block_log))
 
 
-def plain_bucket_window_sums(points, idx, neg, offsets, windows: int,
-                             buckets: int) -> torch.Tensor:
-    """Plain version of K3: the same three phases as csrc/msm.cu."""
-    bsum = plain_bucket_sums(points, idx, neg, offsets, windows, buckets)
-    return plain_fold(bsum, windows, buckets)
+def jac_to_xyzz(p) -> torch.Tensor:
+    """Jacobian (X, Y, Z) rows -> [N, 4, 12] XYZZ (X, Y, Z^2, Z^3)."""
+    x, y, z = p
+    zz = FQ.plain_mul(z, z)
+    return torch.stack([x, y, zz, FQ.plain_mul(zz, z)], dim=1)
 
 
-# -- top level ------------------------------------------------------------------
-
-
-def window_points(sums: torch.Tensor):
-    """[W, 3, 12] Jacobian Montgomery window sums -> host affine points."""
-    xs = FQ.to_ints(sums[:, 0])
-    ys = FQ.to_ints(sums[:, 1])
-    zs = FQ.to_ints(sums[:, 2])
+def xyzz_to_affine(t: torch.Tensor) -> List[AffinePoint]:
+    """[..., 4, 12] XYZZ Montgomery points (any device) -> host affine
+    points, with one copy to the host."""
+    t = t.reshape(-1, 4, FQ.L).cpu()
+    xs, ys, zzs, zzzs = (FQ.to_ints(t[:, i]) for i in range(4))
     out = []
-    for x, y, z in zip(xs, ys, zs):
-        if z == 0:
+    for x, y, zz, zzz in zip(xs, ys, zzs, zzzs):
+        if zz == 0:
             out.append(g1_infinity())
-            continue
-        zi = pow(z, -1, Q_MOD)
-        zi2 = zi * zi % Q_MOD
-        out.append(g1_point(x * zi2 % Q_MOD, y * zi2 * zi % Q_MOD))
+        else:
+            out.append(g1_point(x * pow(zz, -1, Q_MOD) % Q_MOD,
+                                y * pow(zzz, -1, Q_MOD) % Q_MOD))
     return out
 
 
-def horner(win_pts, c: int) -> AffinePoint:
+def affine_to_xyzz(p: AffinePoint, device) -> torch.Tensor:
+    if p.inf:
+        return torch.zeros((4, FQ.L), dtype=torch.int32, device=device)
+    return FQ.from_ints([p.x, p.y, 1, 1], device)
+
+
+def plain_horner(wsums: torch.Tensor, c: int) -> AffinePoint:
+    """The kernel's ladder sum_w 2^(c w) S_w, from the top window down, on
+    host integers."""
     acc = g1_infinity()
-    for p in reversed(win_pts):
+    for p in reversed(xyzz_to_affine(wsums)):
         for _ in range(c):
             acc = acc.double()
         acc = acc.add(p)
     return acc
 
 
-def msm(points: torch.Tensor, scalars: torch.Tensor) -> AffinePoint:
-    """sum_i scalars[i] * points[i] over the first len(scalars) points."""
+def plain_reduce(bsum, windows: int, buckets: int, c: int):
+    """(MSM point [4, 12], window sums [W, 4, 12]) from the bucket totals,
+    both XYZZ, as the kernel's reduction returns them."""
+    wsums = jac_to_xyzz(plain_window_sums(bsum, windows, buckets))
+    return affine_to_xyzz(plain_horner(wsums, c), wsums.device), wsums
+
+
+def plain_bucket_msm(points, idx, neg, offsets, windows: int, buckets: int,
+                     c: int):
+    """Plain version of K3: bucket totals, then the kernel's reduction."""
+    bsum = plain_bucket_sums(points, idx, neg, offsets, windows, buckets)
+    return plain_reduce(bsum, windows, buckets, c)
+
+
+# -- top level ------------------------------------------------------------------
+
+
+def msm_point(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """sum_i scalars[i] * points[i] over the first len(scalars) points, as
+    one XYZZ point [4, 12] on the points' device; nothing is synchronized."""
     n = scalars.shape[0]
     if n == 0:
-        return g1_infinity()
+        return torch.zeros((4, FQ.L), dtype=torch.int32, device=points.device)
     if points.shape[0] < n:
         raise ValueError(f"{points.shape[0]} points < {n} scalars")
     c = window_bits(n)
     buckets = 1 << (c - 1)
     mags, negs = signed_digits(scalars, c)
     idx, neg, offsets = bucket_runs(mags, negs, buckets)
-    sums = bucket_window_sums(points[:n], idx, neg, offsets, mags.shape[0],
-                              buckets)
-    return horner(window_points(sums), c)
+    return bucket_msm(points[:n], idx, neg, offsets, mags.shape[0], buckets,
+                      c)[0]
+
+
+def msm(points: torch.Tensor, scalars: torch.Tensor) -> AffinePoint:
+    """sum_i scalars[i] * points[i] as a host affine point."""
+    return xyzz_to_affine(msm_point(points, scalars))[0]
 
 
 def native_msm(packed: np.ndarray, scalars: torch.Tensor) -> AffinePoint:

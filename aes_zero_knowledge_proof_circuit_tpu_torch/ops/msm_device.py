@@ -3,8 +3,8 @@
 `msm_device` always runs the stages of ops/msm_pallas.py (kernel K4 on
 CUDA tensors), as the JAX `msm_device` reaches `msm_pallas` on a TPU. It
 commits the index (marlin/indexer.py) and, with `msm_engine="pallas"`, the
-prover's polynomials. The window sums come back to the host for the Horner
-ladder (`fold_windows`, 8 doublings per window). The eager
+prover's polynomials. The window ladder (8 doublings per window) runs in
+the kernel's reduction, so one XYZZ point comes back. The eager
 `_window_sums`/`_segmented_add`/`_tree_reduce_sum` path of the JAX module,
 which dodged XLA:TPU compile times, has no counterpart.
 """
@@ -16,20 +16,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.ops.curve_host import (
-    AffinePoint,
-    g1_infinity,
-)
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import (
-    FR_LIMBS,
-    R_MOD,
-)
-from aes_zero_knowledge_proof_circuit_tpu.ops.limbs import ints_to_limbs
-
 from ..utils.srs import pack_points
 from . import msm_pallas
+from .curve_host import AffinePoint, g1_infinity
 from .field import to_u32
-from .msm import horner, points_from_packed, window_points
+from .field_params import FR_LIMBS, R_MOD
+from .limbs import ints_to_limbs
+from .msm import points_from_packed, xyzz_to_affine
 
 
 def scalars_to_digit_limbs(scalars: Sequence[int]) -> np.ndarray:
@@ -45,18 +38,21 @@ def digit_limbs(scalars: torch.Tensor) -> torch.Tensor:
         v.shape[0], 2 * v.shape[1]).to(torch.int32)
 
 
-def fold_windows(wsums: torch.Tensor) -> AffinePoint:
-    """Combine [32, 3, 12] window sums on the host: sum_w 2^(8 w) S_w."""
-    return horner(window_points(wsums), msm_pallas.WINDOW_BITS)
+def msm_device_point(points: torch.Tensor, digits16: torch.Tensor,
+                     lanes: Optional[int] = None) -> torch.Tensor:
+    """sum_i s_i P_i over device points and [n, 16] 16-bit digit limbs, as
+    one XYZZ point [4, 12] on the points' device."""
+    if digits16.shape[0] == 0:
+        return torch.zeros((4, 12), dtype=torch.int32, device=points.device)
+    return msm_pallas.msm_parts(points, digits16, lanes)[0]
 
 
 def msm_device(points: torch.Tensor, digits16: torch.Tensor,
                lanes: Optional[int] = None) -> AffinePoint:
-    """sum_i s_i P_i over device points and [n, 16] 16-bit digit limbs;
-    returns a host affine point."""
+    """`msm_device_point` as a host affine point."""
     if digits16.shape[0] == 0:
         return g1_infinity()
-    return fold_windows(msm_pallas.window_sums(points, digits16, lanes))
+    return xyzz_to_affine(msm_device_point(points, digits16, lanes))[0]
 
 
 def msm(points: Sequence[AffinePoint], scalars: Sequence[int],

@@ -27,7 +27,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD
+from .field_params import Q_MOD
 
 from .. import kernels
 from .field import _normalize, fq_ops, from_u32, to_u32

@@ -15,7 +15,7 @@ Stages, as in the JAX module, for all 32 windows at once:
    (never added). Here each lane scans STEPS pairs, so the lanes fill the
    card; the TPU kernel uses 128 lanes.
 3. the bucket scan in lanes, kernel K4 (csrc/msm_u8.cu, wrapper
-   `scan_window_sums`): every lane closes each (lane, bucket) run with one
+   `scan_msm`): every lane closes each (lane, bucket) run with one
    tail. Digit 0 is the dump: its pairs are never added and leave no tail.
    The tails go to the slots `land` counted (`lane_base`), in (window,
    digit) order, which takes the place of the scatter into per-lane bucket
@@ -23,11 +23,13 @@ Stages, as in the JAX module, for all 32 windows at once:
 4. the lane merge: each bucket's tails summed with complete adds (tails of
    one bucket from adjacent lanes can be equal or opposite points).
 5. the suffix fold sum_{j>=1} sum_{d>=j} B_d = sum_d d B_d per window
-   (`_suffix_fold`), as the chunked running sums of the K3 reduction.
+   (`_suffix_fold`) and the window ladder, by K3's reduction
+   (csrc/curve.cuh): K4 returns the MSM as one XYZZ point on the device.
 
-`plain_scan_window_sums` is the plain version of stages 3-5, built from
-the curve formulas of ops/curve.py: each (lane, bucket) run and each
-bucket is summed by a pairwise tree instead of a sequential scan.
+`plain_scan_msm` is the plain version of stages 3-5, built from the curve
+formulas of ops/curve.py: each (lane, bucket) run and each bucket is summed
+by a pairwise tree instead of a sequential scan, then K3's plain reduction
+(`msm.plain_reduce`) runs.
 """
 
 from __future__ import annotations
@@ -40,13 +42,19 @@ import torch
 from .. import kernels
 from . import curve
 from .field import fq_ops
-from .msm import _chunk, plain_fold
+from .msm import (
+    merge_passes,
+    merge_plan,
+    plain_reduce,
+    reduce_geometry,
+    reduce_scratch,
+)
 
 FQ = fq_ops()
 WINDOW_BITS = 8
 WINDOWS = 32             # 256-bit scalars: two 8-bit windows per 16-bit limb
 BUCKETS = 1 << WINDOW_BITS
-STEPS = 256              # sorted pairs one K4 thread scans: its lane's slice
+STEPS = 64               # sorted pairs one K4 thread scans: its lane's slice
 PLAIN_PAIRS = 1 << 23    # sorted pairs the plain version sums in one pass
 
 
@@ -73,6 +81,8 @@ class Landing:
     lane_base: torch.Tensor   # [W*lanes + 1] int64 first tail slot per lane
     first: torch.Tensor       # [W*B + 1] int64 tails of bucket w*B + d - 1
     n_tails: int
+    merge_passes: int         # merge levels for the most tails of a bucket
+    merge_prefix: torch.Tensor  # [merge_passes, W*B + 1] int64 (merge_plan)
 
 
 def _tail_mask(lane_digits: torch.Tensor) -> torch.Tensor:
@@ -104,59 +114,59 @@ def land(digits16: torch.Tensor, lanes: Optional[int] = None) -> Landing:
     lane_base[1:] = torch.cumsum(tail.sum(-1).reshape(-1), 0)
     win = torch.arange(WINDOWS, device=dev).view(WINDOWS, 1, 1)
     tail_key = (win * BUCKETS + lane_digits.to(torch.int64) - 1)[tail]
+    counts = torch.bincount(tail_key, minlength=WINDOWS * BUCKETS)
     first = torch.zeros(WINDOWS * BUCKETS + 1, dtype=torch.int64, device=dev)
-    first[1:] = torch.cumsum(
-        torch.bincount(tail_key, minlength=WINDOWS * BUCKETS), 0)
+    first[1:] = torch.cumsum(counts, 0)
     column_major = lambda t: t.view(WINDOWS, lanes, steps).transpose(
         1, 2).contiguous()
+    passes = merge_passes(int(counts.max()))
     return Landing(order=column_major(order), digits=column_major(ds),
                    lanes=lanes, steps=steps, lane_base=lane_base, first=first,
-                   n_tails=int(lane_base[-1]))
+                   n_tails=int(lane_base[-1]), merge_passes=passes,
+                   merge_prefix=merge_plan(first, passes))
 
 
 # -- K4 and its plain version ---------------------------------------------------
 
 
-def scan_window_sums(points: torch.Tensor, plan: Landing) -> torch.Tensor:
-    """K4 wrapper: [32, 3, 12] Jacobian window sums S_w = sum_d d B_w,d
-    (Montgomery Fq). Plain version on CPU tensors, the kernel on CUDA."""
+def scan_msm(points: torch.Tensor, plan: Landing):
+    """K4 wrapper: (the MSM sum_w 2^(8 w) S_w as one XYZZ point [4, 12], the
+    window sums S_w = sum_d d B_w,d as [32, 4, 12] XYZZ), Montgomery Fq.
+    Plain version on CPU tensors, the kernel on CUDA."""
     if points.dtype != torch.int32 or points.dim() != 3 or \
             points.shape[1:] != (2, FQ.L):
         raise ValueError(f"points must be [N, 2, 12] int32, got "
                          f"{tuple(points.shape)} {points.dtype}")
     if points.device.type == "cpu":
-        return plain_scan_window_sums(points, plan)
+        return plain_scan_msm(points, plan)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
     for t, dt in ((plan.order, torch.int32), (plan.digits, torch.uint8),
-                  (plan.lane_base, torch.int64), (plan.first, torch.int64)):
+                  (plan.lane_base, torch.int64), (plan.first, torch.int64),
+                  (plan.merge_prefix, torch.int64)):
         if t.dtype != dt or t.device != points.device or not t.is_contiguous():
             raise ValueError(f"bad landing tensor {t.dtype} on {t.device}")
     if int(plan.order.max()) >= points.shape[0]:
         raise ValueError("point index out of range")
     points = points.contiguous()
     dev = points.device
-    chunk = _chunk(BUCKETS)
-    tails = torch.empty((max(1, plan.n_tails), 3, FQ.L), dtype=torch.int32,
+    slice_log, block_log = reduce_geometry(BUCKETS)
+    tails = torch.empty((max(1, plan.n_tails), 4, FQ.L), dtype=torch.int32,
                         device=dev)
-    bucket_scratch = torch.empty((WINDOWS * BUCKETS, 3, FQ.L),
-                                 dtype=torch.int32, device=dev)
-    chunk_scratch = torch.empty((WINDOWS * (BUCKETS // chunk), 2, 3, FQ.L),
-                                dtype=torch.int32, device=dev)
-    out = torch.empty((WINDOWS, 3, FQ.L), dtype=torch.int32, device=dev)
+    block_sums, wsums, counters, out = reduce_scratch(WINDOWS, BUCKETS, dev)
     kernels.msm_u8(points.data_ptr(), plan.order.data_ptr(),
                    plan.digits.data_ptr(), WINDOWS, plan.lanes, plan.steps,
-                   plan.lane_base.data_ptr(), plan.first.data_ptr(), chunk,
-                   chunk.bit_length() - 1, tails.data_ptr(),
-                   bucket_scratch.data_ptr(), chunk_scratch.data_ptr(),
-                   out.data_ptr())
-    return out
+                   plan.lane_base.data_ptr(), plan.first.data_ptr(),
+                   plan.merge_prefix.data_ptr(), plan.n_tails,
+                   plan.merge_passes, slice_log, block_log, tails.data_ptr(),
+                   block_sums.data_ptr(), wsums.data_ptr(),
+                   counters.data_ptr(), out.data_ptr())
+    return out, wsums
 
 
-def plain_scan_window_sums(points: torch.Tensor, plan: Landing
-                           ) -> torch.Tensor:
+def plain_scan_msm(points: torch.Tensor, plan: Landing):
     """Plain version of K4: the tails of every (lane, bucket) run, the
-    bucket totals over `plan.first`, and the suffix fold. The tails are
+    bucket totals over `plan.first`, and K3's plain reduction. The tails are
     summed for a few windows at a time (at most PLAIN_PAIRS pairs), which
     bounds the memory of the plain field products."""
     dev = points.device
@@ -187,14 +197,14 @@ def plain_scan_window_sums(points: torch.Tensor, plan: Landing
     bucket = torch.repeat_interleave(
         torch.arange(WINDOWS * BUCKETS, device=dev), counts)
     table = curve.run_sums(bucket, tails, WINDOWS * BUCKETS, affine=False)
-    return plain_fold(table, WINDOWS, BUCKETS)
+    return plain_reduce(table, WINDOWS, BUCKETS, WINDOW_BITS)
 
 
-def window_sums(points: torch.Tensor, digits16: torch.Tensor,
-                lanes: Optional[int] = None) -> torch.Tensor:
-    """[32, 3, 12] Jacobian window sums of the first n points (n = number
-    of digit rows), 8-bit windows."""
+def msm_parts(points: torch.Tensor, digits16: torch.Tensor,
+              lanes: Optional[int] = None):
+    """`scan_msm` of the first n points (n = number of digit rows), 8-bit
+    windows: (MSM point [4, 12], window sums [32, 4, 12]), XYZZ."""
     n = digits16.shape[0]
     if points.shape[0] < n:
         raise ValueError(f"{points.shape[0]} points < {n} scalars")
-    return scan_window_sums(points[:n], land(digits16, lanes))
+    return scan_msm(points[:n], land(digits16, lanes))

@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import (
+from .field_params import (
     R_MOD,
     root_of_unity,
 )

@@ -16,7 +16,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
+from .field_params import R_MOD
 
 from .field import MASK16, fr_ops, from_halves, halves
 from .ntt import ntt_engine

@@ -16,15 +16,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.models.witness_plan import CompiledPlan
+from ..models.witness_plan import CompiledPlan
+from ..utils.device import resolve_device
 
 
 class WitnessEvaluator:
     """One circuit template's witness fill on one device."""
 
-    def __init__(self, plan: CompiledPlan, device):
+    def __init__(self, plan: CompiledPlan, device="cuda"):
         self.plan = plan
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         def up(a):
             return torch.from_numpy(

@@ -1,10 +1,9 @@
-"""SRS generation, checkpoint loading and device upload, free of JAX.
+"""SRS generation, checkpoint loading and device upload.
 
-The JAX package keeps `PackedPowers` and `generate_srs_native` in
-parallel/srs_gen.py, whose module imports jax, and its `load_srs`
-(utils/serialize.py) imports that module; these are their jax-free copies.
-The checkpoint format is the same `.npz`, written by the shared
-utils/serialize.save_srs, so both packages read each other's checkpoints.
+`PackedPowers` keeps the G1 powers in the checkpoint layout and builds host
+points only on access; `generate_srs_native` runs the native fixed-base
+ladder. The checkpoint is the `.npz` written by utils/serialize.save_srs,
+loaded here with `allow_pickle=False`.
 """
 
 from __future__ import annotations
@@ -16,17 +15,15 @@ import random as _random
 import numpy as np
 import torch
 
-from aes_zero_knowledge_proof_circuit_tpu.ops import kzg
-from aes_zero_knowledge_proof_circuit_tpu.ops.curve_host import (
+from ..ops import kzg
+from ..ops.curve_host import (
     AffinePoint,
     g1_generator,
     g1_infinity,
     g1_point,
     g2_generator,
 )
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
-from aes_zero_knowledge_proof_circuit_tpu.utils.serialize import VERSION, _r_g2
-
+from ..ops.field_params import R_MOD
 from ..ops.msm import points_from_packed
 from .native import native
 
@@ -109,7 +106,9 @@ def generate_srs_native(max_degree: int, rng: _random.Random) -> kzg.SRS:
 
 def load_srs(path: str) -> kzg.SRS:
     """Read a checkpoint written by utils/serialize.save_srs."""
-    with np.load(path) as d:
+    from .serialize import VERSION, _r_g2
+
+    with np.load(path, allow_pickle=False) as d:
         if int(d["version"]) != VERSION:
             raise ValueError("unsupported SRS version")
         max_degree = int(d["max_degree"])

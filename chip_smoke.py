@@ -7,13 +7,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the Hopper kernels from `aes_zero_knowledge_proof_circuit_tpu_torch/
    csrc/` (one nvcc per source, all at once, then one link), with the build
-   time;
-3. kernels: K1 (field mul/add/sub), K2 (NTT stage), K3 (signed-window MSM
-   buckets), K4 (8-bit bucket-scan MSM) and K5 (Fq digit-column product)
-   against their plain PyTorch versions on the card, bit-exact, plus K3 and
-   K4 against the native host Pippenger; kernel and plain times
-   (synchronized, median of 3) at the main path's shapes, where the timed
-   outputs of kernel and plain version are compared as well;
+   time and ptxas's registers and spills for every kernel;
+3. kernels: K1 (field mul/add/sub), K2 (NTT stage), K3 (signed-window MSM:
+   bucket accumulation, reduction and window ladder), K4 (8-bit bucket-scan
+   MSM) and K5 (Fq digit-column product) against their plain PyTorch
+   versions on the card, bit-exact (MSM points compared as affine points),
+   plus K3 and K4 against the native host Pippenger at 2^16; kernel times
+   (synchronized, median of 3) and plain times at the main path's shapes,
+   where the timed outputs of kernel and plain version are compared as
+   well, each with the card's name and power limit and its bound (the
+   larger of bytes over 3.35 TB/s and 32-bit multiply-adds over
+   132 SMs x 64 a clock x 1.98 GHz);
 4. the ntt_mul path (K5's entry point) at 2^20 columns, with its launches
    and a sample of its columns checked against host integers;
 5. main path: synthesize_keys(16) on the card (the index committed on K4),
@@ -23,7 +27,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ZKAES_MSM_MXU=0, as a user chooses it), the K4 proof verified and its
    flipped bit rejected, zk=False proofs on both engines equal byte for
    byte; then, outside the counted run, the nine index commitments
-   recomputed on K3.
+   recomputed on K3 and K3 at 2^20 SRS points against the native Pippenger.
 
 Each path (ntt_mul, main) runs with the launch counts set to 0 just before
 it and read just after; every kernel must have launched in the path that
@@ -83,8 +87,30 @@ KERNEL_INFO = {
 }
 
 
+# the card's peaks the bounds are taken against (NVIDIA H100 SXM at 700 W):
+# HBM bytes a second, and 32-bit multiply-adds a second (CUDA C++
+# Programming Guide, arithmetic instructions, compute capability 9.0: 64 a
+# clock an SM; 132 SMs at the 1.98 GHz boost clock)
+HBM_BYTES_S = 3.35e12
+IMAD_S = 132 * 64 * 1.98e9
+# 32-bit multiply-adds of one Montgomery product: 2 (low and high halves)
+# for each of the L^2 limb products of a * b and of m * p
+FR_PRODUCT = 2 * 2 * 8 * 8
+FQ_PRODUCT = 2 * 2 * 12 * 12
+CARD = ""          # nvidia-smi's "name, power limit", set by phase_device
+
+
 def say(*args) -> None:
     print(*args, flush=True)
+
+
+def set_bound(entry: dict, nbytes: float, imads: float) -> None:
+    """bound_ms and bound_by of one kernel from this run's bytes and
+    multiply-adds."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = imads / IMAD_S * 1e3
+    entry.update(bound_ms=max(by_bytes, by_ops),
+                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def timed(fn, reps: int = 3):
@@ -131,6 +157,8 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     say(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)}")
     return smi
@@ -140,7 +168,10 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     lib = kernels.library()
     say(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f}s, "
-        f"load {time.perf_counter() - t0:.1f}s")
+        f"load {time.perf_counter() - t0:.1f}s [{CARD}]")
+    for src, name, regs, st, ld in kernels.resource_usage():
+        say(f"[ptxas] {src} {name}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
 
 
 def check_field(results: dict, gen, dev, n: int) -> None:
@@ -177,12 +208,14 @@ def check_ntt(results: dict, gen, dev, sizes) -> None:
     say(f"[K2] NTT/iNTT at 2^{list(sizes)} vs plain, round trip: bit-exact")
 
 
-def msm_inputs(points, scalars):
-    c = M.window_bits(scalars.shape[0])
+def msm_inputs(points, scalars, c=None):
+    """bucket_msm's arguments for the first len(scalars) points, at window
+    width c (window_bits(n) by default)."""
+    c = c or M.window_bits(scalars.shape[0])
     mags, negs = M.signed_digits(scalars, c)
     idx, neg, offsets = M.bucket_runs(mags, negs, 1 << (c - 1))
-    return c, (points[: scalars.shape[0]], idx, neg, offsets, mags.shape[0],
-               1 << (c - 1))
+    return (points[: scalars.shape[0]], idx, neg, offsets, mags.shape[0],
+            1 << (c - 1), c)
 
 
 def point_err(a, b) -> int:
@@ -193,28 +226,72 @@ def point_err(a, b) -> int:
     return max(abs(ca[0] - cb[0]), abs(ca[1] - cb[1]))
 
 
+def xyzz_err(got, want) -> int:
+    """point_err over (MSM point, window sums) pairs of XYZZ tensors,
+    compared as affine points (kernel and plain version reach them by
+    different addition orders)."""
+    return max(point_err(u, v) for g, w in zip(got, want)
+               for u, v in zip(M.xyzz_to_affine(g), M.xyzz_to_affine(w)))
+
+
+def k3_imads(args) -> float:
+    """32-bit multiply-adds K3 needs on these inputs: a mixed add (10 Fq
+    products) for every sorted pair of a nonzero digit but the first of
+    its bucket, two full adds (14 products each) a bucket for the running
+    sums, and the ladder's c (W - 1) doublings (9 products) and W adds."""
+    offsets, windows, buckets, c = args[3], args[4], args[5], args[6]
+    counts = (offsets[1:] - offsets[:-1]).view(windows, buckets + 1)[:, 1:]
+    adds = int(counts.sum()) - int((counts > 0).sum())
+    products = (10 * adds + 2 * 14 * windows * buckets
+                + 9 * c * (windows - 1) + 14 * windows)
+    return products * FQ_PRODUCT
+
+
+def k4_imads(plan) -> float:
+    """The same count for K4: a mixed add for every pair of a nonzero
+    digit but the first of its (lane, bucket) run, a full add to merge each
+    further tail of a bucket, two a bucket for the running sums, and the
+    ladder's 8 x 31 doublings and 32 adds."""
+    pairs = int((plan.digits > 0).sum())
+    nonempty = int((plan.first[1:] > plan.first[:-1]).sum())
+    products = (10 * (pairs - plan.n_tails) + 14 * (plan.n_tails - nonempty)
+                + 2 * 14 * MP.WINDOWS * MP.BUCKETS + 9 * 8 * 31 + 14 * 32)
+    return products * FQ_PRODUCT
+
+
+def msm_bytes(n: int) -> float:
+    """Bytes an n-term MSM must move: each affine point (96 B) and scalar
+    (32 B) read once; the one output point is negligible."""
+    return n * (96 + 32)
+
+
 def check_msm(results: dict, srs_packed: np.ndarray, dev) -> None:
-    """K3's Jacobian window sums are compared as affine points: the kernel
-    and the plain version reach them by different addition orders."""
+    """K3 (point and window sums) against its plain version at 2^10 points
+    (its own window width and the full 13-bit geometry, with repeated,
+    negated and zero pairs) and at 3 points; then msm() at 2^16 against the
+    native Pippenger."""
     f = fr_ops()
     rnd = random.Random(7)
     points = M.points_from_packed(srs_packed, dev)
-    n = min(1 << 10, srs_packed.shape[0])
-    sc = [rnd.randrange(f.modulus) for _ in range(n)]
-    sc[0] = 0
-    c, args = msm_inputs(points, f.from_ints(sc, dev, mont=False))
-    got = M.window_points(M.bucket_window_sums(*args))
-    want = M.window_points(M.plain_bucket_window_sums(*args))
-    err = max(point_err(a, b) for a, b in zip(got, want))
-    err = max(err, point_err(M.horner(got, c), M.horner(want, c)))
-    if err:
-        raise AssertionError(f"K3 at {n} points disagrees with plain")
+    err = 0
+    for n, c in ((1 << 10, None), (1 << 10, 13), (3, None)):
+        pts = points[:n].clone()
+        sc = [rnd.randrange(f.modulus) for _ in range(n)]
+        sc[0] = 0
+        if n > 4:
+            pts[1], sc[1] = pts[4], sc[4]      # P + P in every window
+            pts[2], sc[2] = pts[3], f.modulus - sc[3]   # P - P
+        args = msm_inputs(pts, f.from_ints(sc, dev, mont=False), c)
+        e = xyzz_err(M.bucket_msm(*args), M.plain_bucket_msm(*args))
+        if e:
+            raise AssertionError(f"K3 at {n} points (c={args[-1]}) disagrees "
+                                 f"with plain")
+        err = max(err, e)
     n = srs_packed.shape[0]
     sc = [rnd.randrange(f.modulus) for _ in range(n)]
     scalars = f.from_ints(sc, dev, mont=False)
     t0 = time.perf_counter()
     got = M.msm(points, scalars)
-    torch.cuda.synchronize()
     t1 = time.perf_counter()
     want = M.native_msm(srs_packed, scalars)
     t2 = time.perf_counter()
@@ -222,24 +299,17 @@ def check_msm(results: dict, srs_packed: np.ndarray, dev) -> None:
     if err:
         raise AssertionError(f"K3 at {n} points disagrees with native")
     results["msm"]["max_abs_err"] = err
-    say(f"[K3] MSM 2^10 vs plain, 2^{n.bit_length() - 1} vs native Pippenger "
-        f"(card {t1 - t0:.3f}s incl. host ladder, native {t2 - t1:.3f}s): "
-        f"equal points")
-
-
-def k4_window_err(points, plan) -> int:
-    """K4 against its plain version on one landing, per window as affine
-    points (the two sum in different orders)."""
-    got = M.window_points(MP.scan_window_sums(points, plan))
-    want = M.window_points(MP.plain_scan_window_sums(points, plan))
-    return max(point_err(a, b) for a, b in zip(got, want))
+    say(f"[K3] MSM at 2^10 (c=7 and 13) and 3 points vs plain; msm() at "
+        f"2^{n.bit_length() - 1} vs native Pippenger (card {t1 - t0:.3f}s "
+        f"with digits, sort and affine result; native {t2 - t1:.3f}s): "
+        f"equal points [{CARD}]")
 
 
 def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
-    """K4's window sums at 2^10 points, and at edge shapes: n not a power
-    of two, a long equal-digit run in the low window, windows 8-31 all
-    zero, few points; then msm_device at 2^16 against the native
-    Pippenger."""
+    """K4 (point and window sums) against its plain version at 2^10 points
+    and at edge shapes: n not a power of two, a long equal-digit run in the
+    low window, windows 8-31 all zero, few points; then msm_device at 2^16
+    against the native Pippenger."""
     f = fr_ops()
     rnd = random.Random(11)
     points = M.points_from_packed(srs_packed, dev)
@@ -251,8 +321,9 @@ def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
         sc[0] = 0
         for i in range(1, min(n, 300)):
             sc[i] = (sc[i] & ~0xFF) | 0x5A
-        d16 = MD.digit_limbs(f.from_ints(sc, dev, mont=False))
-        e = k4_window_err(points[:n], MP.land(d16, lanes))
+        plan = MP.land(MD.digit_limbs(f.from_ints(sc, dev, mont=False)), lanes)
+        e = xyzz_err(MP.scan_msm(points[:n], plan),
+                     MP.plain_scan_msm(points[:n], plan))
         if e:
             raise AssertionError(f"K4 at {n} points (lanes {lanes}) disagrees "
                                  f"with plain")
@@ -262,7 +333,6 @@ def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
                           mont=False)
     t0 = time.perf_counter()
     got = MD.msm_device(points, MD.digit_limbs(scalars))
-    torch.cuda.synchronize()
     t1 = time.perf_counter()
     want = M.native_msm(srs_packed, scalars)
     t2 = time.perf_counter()
@@ -270,10 +340,10 @@ def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
     if err:
         raise AssertionError(f"K4 at {n} points disagrees with native")
     results["msm_u8"]["max_abs_err"] = err
-    say(f"[K4] window sums at 2^10 (two lane counts), 1000 and 3 points vs "
-        f"plain; msm_device 2^{n.bit_length() - 1} vs native Pippenger (card "
-        f"{t1 - t0:.3f}s incl. landing and host ladder, native "
-        f"{t2 - t1:.3f}s): equal points")
+    say(f"[K4] MSM at 2^10 (two lane counts), 1000 and 3 points vs plain; "
+        f"msm_device 2^{n.bit_length() - 1} vs native Pippenger (card "
+        f"{t1 - t0:.3f}s with landing and affine result, native "
+        f"{t2 - t1:.3f}s): equal points [{CARD}]")
 
 
 def fq_columns(n: int, gen) -> np.ndarray:
@@ -309,8 +379,14 @@ def check_fq_cols(results: dict, gen, dev) -> None:
         raise AssertionError(f"K5 at 2^20 columns: err {err}")
     check_fq_sample(a, b, got)
     results["fq_cols"].update(max_abs_err=err, ms=k, plain_ms=p)
-    say(f"[K5] ntt_mul 2^20 columns: kernel {k:.3f} ms, plain {p:.3f} ms; "
-        f"bit-exact (canonical digits), sampled columns equal host ints")
+    # 51 digit rows of each input read, 64 rows written; six Fq products a
+    # column (two to enter Montgomery form per input, the product, the
+    # radix correction)
+    set_bound(results["fq_cols"], (2 * 51 + NM.PAD_IN) * 4 * n,
+              6 * n * FQ_PRODUCT)
+    say(f"[K5] ntt_mul 2^20 columns: kernel {k:.3f} ms, plain {p:.3f} ms, "
+        f"bound {results['fq_cols']['bound_ms']:.4f} ms; bit-exact "
+        f"(canonical digits), sampled columns equal host ints [{CARD}]")
 
 
 def check_fq_sample(a, b, out, m: int = 2048) -> None:
@@ -340,11 +416,13 @@ def phase_ntt_mul(results: dict, gen, dev) -> None:
 
 
 def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
-    """Kernel and plain times at the main path's shapes. The outputs of the
-    timed runs are compared too, so every shape timed is also checked."""
+    """Kernel and plain times at the main path's shapes, with each
+    kernel's bound. The outputs of the timed runs are compared too, so
+    every shape timed is also checked."""
     f = fr_ops()
-    a = random_elements(f, (1 << 20) - 4, gen, dev)
-    b = random_elements(f, (1 << 20) - 4, gen, dev)
+    n = 1 << 20
+    a = random_elements(f, n - 4, gen, dev)
+    b = random_elements(f, n - 4, gen, dev)
     k, got = timed(lambda: f.mul(a, b))
     p, want = timed(lambda: f.plain_mul(a, b))
     err = max_abs_err(got, want)
@@ -352,7 +430,9 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
         raise AssertionError(f"K1 Fr mul 2^20: err {err}")
     fold_err(results["fr_ops"], err)
     results["fr_ops"].update(ms=k, plain_ms=p)
-    say(f"[time] Fr mul 2^20: kernel {k:.3f} ms, plain {p:.3f} ms; equal")
+    set_bound(results["fr_ops"], 3 * n * 32, n * FR_PRODUCT)
+    say(f"[time] Fr mul 2^20: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
+        f"{results['fr_ops']['bound_ms']:.4f} ms; equal [{CARD}]")
     for log_n in (18, 19, 20):
         eng = ntt_engine(log_n, dev)
         x = random_elements(f, eng.n - 4, gen, dev)
@@ -363,36 +443,39 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
             raise AssertionError(f"K2 NTT 2^{log_n}: err {err}")
         fold_err(results["ntt"], err)
         say(f"[time] NTT 2^{log_n}: kernel {k:.3f} ms, plain {p:.3f} ms; "
-            f"equal")
+            f"equal [{CARD}]")
+    # the whole NTT at 2^20: (n/2) log2(n) butterflies of one Fr product;
+    # the input, the output and n/2 twiddles moved once
     results["ntt"].update(ms=k, plain_ms=p)
+    set_bound(results["ntt"], (2 * n + n // 2) * 32,
+              n // 2 * 20 * FR_PRODUCT)
     base = M.points_from_packed(srs_packed, dev)
     for log_n in (19, 20):
         n = 1 << log_n
         # the 2^16 SRS powers repeated: repeats exercise the doubling branch
         points = base.repeat(-(-n // base.shape[0]), 1, 1)[:n].contiguous()
         scalars = random_elements(f, n - 4, gen, dev)
-        c, args = msm_inputs(points, scalars)
-        k, got = timed(lambda: M.bucket_window_sums(*args))
-        p, want = timed(lambda: M.plain_bucket_window_sums(*args), reps=1)
-        err = max(point_err(u, v) for u, v in
-                  zip(M.window_points(got), M.window_points(want)))
+        args = msm_inputs(points, scalars)
+        k, got = timed(lambda: M.bucket_msm(*args))
+        p, want = timed(lambda: M.plain_bucket_msm(*args), reps=1)
+        err = xyzz_err(got, want)
         if err:
             raise AssertionError(f"K3 at 2^{log_n} points disagrees with "
                                  f"plain")
         fold_err(results["msm"], err)
         total, k3_point = timed(lambda: M.msm(points, scalars))
         results["msm"].update(ms=k, plain_ms=p)
-        say(f"[time] MSM 2^{log_n} (c={c}): kernel {k:.3f} ms, plain "
-            f"{p:.3f} ms (one run), whole msm() {total:.3f} ms; equal "
-            f"window sums")
+        set_bound(results["msm"], msm_bytes(n), k3_imads(args))
+        say(f"[time] MSM 2^{log_n} (c={args[-1]}): K3 {k:.3f} ms (median of "
+            f"3), bound {results['msm']['bound_ms']:.3f} ms, plain "
+            f"{p:.3f} ms (one run), whole msm() {total:.3f} ms; equal points "
+            f"and window sums [{CARD}]")
         # K4 on the same points and scalars: the index and prover shapes
         d16 = MD.digit_limbs(scalars)
         t_land, plan = timed(lambda: MP.land(d16))
-        k, got = timed(lambda: MP.scan_window_sums(points, plan))
-        p, want = timed(lambda: MP.plain_scan_window_sums(points, plan),
-                        reps=1)
-        err = max(point_err(u, v) for u, v in
-                  zip(M.window_points(got), M.window_points(want)))
+        k, got = timed(lambda: MP.scan_msm(points, plan))
+        p, want = timed(lambda: MP.plain_scan_msm(points, plan), reps=1)
+        err = xyzz_err(got, want)
         if err:
             raise AssertionError(f"K4 at 2^{log_n} points disagrees with "
                                  f"plain")
@@ -402,11 +485,13 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
             raise AssertionError(f"msm_device at 2^{log_n} points disagrees "
                                  f"with msm")
         results["msm_u8"].update(ms=k, plain_ms=p)
+        set_bound(results["msm_u8"], msm_bytes(n), k4_imads(plan))
         say(f"[time] 8-bit MSM 2^{log_n} ({plan.lanes} lanes of "
-            f"{plan.steps}, {plan.n_tails} tails): kernel {k:.3f} ms, plain "
-            f"{p:.3f} ms (one run), landing {t_land:.3f} ms, whole "
-            f"msm_device() {total:.3f} ms; equal window sums, MSM equal to "
-            f"K3's")
+            f"{plan.steps}, {plan.n_tails} tails): K4 {k:.3f} ms, bound "
+            f"{results['msm_u8']['bound_ms']:.3f} ms, plain {p:.3f} ms (one "
+            f"run), landing {t_land:.3f} ms, whole msm_device() "
+            f"{total:.3f} ms; equal points and window sums, MSM equal to "
+            f"K3's [{CARD}]")
 
 
 MAIN_PATH = ("fr_ops", "ntt", "msm", "msm_u8")
@@ -429,7 +514,8 @@ def warm_prove(pk, label: str):
     counts = {k: after[k] - before[k] for k in after}
     stages = pk._prover.last_stage_times
     say(f"[main] warm prove (zk, {label}): {warm_s:.2f}s; stages "
-        + ", ".join(f"{k} {v:.3f}s" for k, v in stages.items()))
+        + ", ".join(f"{k} {v:.3f}s" for k, v in stages.items())
+        + f" [{CARD}]")
     say(f"[main] launches in it: {counts}")
     return proof, counts
 
@@ -444,7 +530,7 @@ def pallas_engine_key(pk):
         t0 = time.perf_counter()
         proof = api.encrypt(MESSAGE, KEY, pk4, rng=random.Random(3), zk=True)
         say(f"[main] cold prove (zk, K4 engine): "
-            f"{time.perf_counter() - t0:.1f}s")
+            f"{time.perf_counter() - t0:.1f}s [{CARD}]")
     finally:
         if old is None:
             os.environ.pop("ZKAES_MSM_MXU")
@@ -475,12 +561,12 @@ def phase_main_path(results: dict, dev) -> None:
     say(f"[main] synthesize_keys(16): {time.perf_counter() - t0:.1f}s "
         f"({times}); n=2^{pk.marlin_pk.log_n}, "
         f"k=2^{max(vk.log_ks)}, SRS degree {vk.max_degree}; launches "
-        f"{index_counts}")
+        f"{index_counts} [{CARD}]")
     require_launched(index_counts, ("fr_ops", "ntt", "msm_u8"), "the index")
 
     t0 = time.perf_counter()
     proof = api.encrypt(MESSAGE, KEY, pk, rng=random.Random(1), zk=True)
-    say(f"[main] cold prove (zk): {time.perf_counter() - t0:.1f}s")
+    say(f"[main] cold prove (zk): {time.perf_counter() - t0:.1f}s [{CARD}]")
     ct = api.compute_ciphertext(MESSAGE, KEY)
     check_proof(vk, proof, ct, "cold")
     blob = api.serialize_proof(proof)
@@ -528,6 +614,22 @@ def phase_main_path(results: dict, dev) -> None:
                                      "differs from K3's")
     say(f"[main] the {len(vk.index_comms)} index commitments (K4) equal "
         f"K3's")
+    # and K3 at 2^20 distinct SRS points against the native Pippenger
+    packed = pk.marlin_pk.srs.powers_g1.packed
+    n = min(1 << 20, packed.shape[0])
+    f = fr_ops()
+    rnd = random.Random(13)
+    scalars = f.from_ints([rnd.randrange(f.modulus) for _ in range(n)], dev,
+                          mont=False)
+    t0 = time.perf_counter()
+    got = M.msm(prover.srs_dev.slice(0, n), scalars)
+    t1 = time.perf_counter()
+    want = M.native_msm(packed, scalars)
+    t2 = time.perf_counter()
+    if point_err(got, want):
+        raise AssertionError(f"K3 at {n} SRS points disagrees with native")
+    say(f"[main] msm() at {n} SRS points equals the native Pippenger (card "
+        f"{t1 - t0:.3f}s, native {t2 - t1:.3f}s) [{CARD}]")
 
 
 def run(smi: str) -> None:
@@ -535,8 +637,11 @@ def run(smi: str) -> None:
     torch.cuda.set_device(dev)
     phase_build()
 
+    # library_ms: no single PyTorch call computes a Montgomery product, a
+    # finite-field NTT or a G1 MSM
     results = {name: {"name": name, "route": "cuda",
-                      "source": f"{PKG}/{src}", "replaces": rep}
+                      "source": f"{PKG}/{src}", "replaces": rep,
+                      "library_ms": None}
                for name, (src, rep) in KERNEL_INFO.items()}
     gen = np.random.default_rng(0)
     check_field(results, gen, dev, 1 << 20)
@@ -544,7 +649,7 @@ def run(smi: str) -> None:
     t0 = time.perf_counter()
     srs = generate_srs_native((1 << 16) - 1, random.Random(3))
     say(f"[K3] 2^16 test points from the native SRS generator: "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{time.perf_counter() - t0:.1f}s (host)")
     packed = srs.powers_g1.packed
     check_msm(results, packed, dev)
     check_msm_u8(results, packed, dev)
@@ -553,6 +658,12 @@ def run(smi: str) -> None:
     phase_ntt_mul(results, gen, dev)
     phase_main_path(results, dev)
 
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in results.values():
+        missing = [k for k in keys if k not in entry]
+        if missing:
+            raise AssertionError(f"kernel {entry['name']} lacks {missing}")
     say(json.dumps({"kernels": [results[k] for k in KERNEL_INFO]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

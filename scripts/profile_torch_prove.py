@@ -10,7 +10,7 @@ one prove under `torch.profiler` with CPU and CUDA activities. It prints:
 - the profiled prove's wall seconds and stage times;
 - device busy seconds (the union of every device kernel and copy interval)
   and the device's idle share of the prove's wall time;
-- one `[group]` line per kernel family (K1, K2, each K3 kernel, torch's
+- one `[group]` line per kernel family (K1, K2, each MSM kernel, torch's
   scan and sort kernels, the rest): device ms, launches and share, each
   the sum of the `[kernel]` lines whose names it matches;
 - one `[kernel]` line per device kernel or copy name, sorted by device time.
@@ -44,9 +44,10 @@ GROUPS = (
     ("K1 field_binop", ("field_binop",)),
     ("K2 ntt_stage", ("ntt_stage",)),
     ("K3 segment_accumulate", ("segment_accumulate",)),
-    ("K3 bucket_merge", ("bucket_merge",)),
-    ("K3 bucket_chunk_reduce", ("bucket_chunk_reduce",)),
-    ("K3 window_combine", ("window_combine",)),
+    ("K3/K4 segment_merge", ("segment_merge",)),
+    ("K3/K4 bucket_reduce", ("bucket_reduce",)),
+    ("K3/K4 window_ladder", ("window_ladder",)),
+    ("K4 lane_scan", ("lane_scan",)),
     ("torch scan (cumsum)", ("scan",)),
     ("torch sort", ("Sort", "sort")),
     ("copies", ("Memcpy", "Memset")),

@@ -1,7 +1,9 @@
-"""The port's API surface: what it accepts, and the typed errors for what
-it does not do yet (CBC, batches, meshes)."""
+"""The port's API surface: what it accepts, the typed errors for what it
+does not do yet (CBC, batches, meshes), and the entry points' device: the
+CUDA card unless the caller asks for the CPU, never a quiet fallback."""
 
 import pytest
+import torch
 
 from aes_zero_knowledge_proof_circuit_tpu import api as jax_api
 from aes_zero_knowledge_proof_circuit_tpu_torch import api
@@ -22,8 +24,33 @@ def test_compute_ciphertext_and_bits_match_reference():
 
 
 def test_device_is_required():
-    with pytest.raises(TypeError):
+    """The default device is CUDA; without a card the call raises before
+    any setup work, and does not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         api.synthesize_keys(16)
+
+
+@pytest.mark.parametrize("entry", ["prover", "index", "witness", "main"])
+def test_entry_points_default_to_cuda(entry):
+    from aes_zero_knowledge_proof_circuit_tpu_torch import __main__ as cli
+    from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import indexer
+    from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import (
+        TorchProver,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.witness import (
+        WitnessEvaluator,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would run")
+    call = {"prover": lambda: TorchProver(None),
+            "index": lambda: indexer.index(None, None),
+            "witness": lambda: WitnessEvaluator(None),
+            "main": lambda: cli.main([])}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 @pytest.mark.parametrize("call", [

@@ -49,31 +49,52 @@ def test_k2_matches_plain(cuda):
 
 
 def test_k3_matches_native(cuda):
-    from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
+    """K3 at 2^16 points (13-bit windows: the full reduction geometry)
+    against the native Pippenger, and its point and window sums against
+    the plain version at 1024 points, with repeated and negated pairs."""
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import (
+        R_MOD,
+    )
     from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
         generate_srs_native,
     )
     import random
 
-    srs = generate_srs_native(1023, random.Random(4))
-    pts = M.points_from_packed(srs.powers_g1.packed, cuda)
-    sc = [random.Random(5).randrange(R_MOD) for _ in range(1024)]
+    srs = generate_srs_native((1 << 16) - 1, random.Random(4))
+    packed = srs.powers_g1.packed
+    pts = M.points_from_packed(packed, cuda)
+    rnd = random.Random(5)
+    sc = [rnd.randrange(R_MOD) for _ in range(1 << 16)]
     scalars = fr_ops().from_ints(sc, cuda, mont=False)
-    assert M.msm(pts, scalars) == M.native_msm(srs.powers_g1.packed, scalars)
+    assert M.msm(pts, scalars) == M.native_msm(packed, scalars)
+    small = pts[:1024].clone()
+    small[1] = small[0]
+    sc = sc[:1024]
+    sc[1], sc[2] = sc[0], R_MOD - sc[3]
+    small[2] = small[3]
+    scalars = fr_ops().from_ints(sc, cuda, mont=False)
+    for c in (6, 13):
+        mags, negs = M.signed_digits(scalars, c)
+        args = (small, *M.bucket_runs(mags, negs, 1 << (c - 1)),
+                mags.shape[0], 1 << (c - 1), c)
+        got, want = M.bucket_msm(*args), M.plain_bucket_msm(*args)
+        for g, w in zip(got, want):
+            assert M.xyzz_to_affine(g) == M.xyzz_to_affine(w)
 
 
 def test_k4_matches_plain(cuda):
-    """Window sums of the 8-bit bucket scan, as affine points per window,
-    at a power of two and at n = 1000 with a long equal-digit run and
-    scalars below 2^64 (windows 8-31 all zero), then the MSM against the
-    native Pippenger."""
-    from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
+    """K4's point and window sums at a power of two and at n = 1000 with a
+    long equal-digit run and scalars below 2^64 (windows 8-31 all zero),
+    then the MSM against the native Pippenger."""
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_device as MD
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_pallas as MP
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import (
+        R_MOD,
+    )
     from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
         generate_srs_native,
     )
@@ -90,9 +111,10 @@ def test_k4_matches_plain(cuda):
             sc[i] = (sc[i] & ~0xFF) | 0x5A
         plan = MP.land(MD.digit_limbs(fr_ops().from_ints(sc, cuda,
                                                          mont=False)), lanes)
-        got = M.window_points(MP.scan_window_sums(pts[:n], plan))
-        assert got == M.window_points(MP.plain_scan_window_sums(pts[:n],
-                                                                plan))
+        got = MP.scan_msm(pts[:n], plan)
+        want = MP.plain_scan_msm(pts[:n], plan)
+        for g, w in zip(got, want):
+            assert M.xyzz_to_affine(g) == M.xyzz_to_affine(w)
     scalars = fr_ops().from_ints(sc, cuda, mont=False)
     assert MD.msm_device(pts, MD.digit_limbs(scalars)) == M.native_msm(
         srs.powers_g1.packed, scalars)
@@ -101,7 +123,7 @@ def test_k4_matches_plain(cuda):
 def test_k5_matches_plain(cuda):
     import random
 
-    from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import Q_MOD
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_ntt_mul as NM
 
     r = random.Random(8)

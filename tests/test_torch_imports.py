@@ -1,7 +1,15 @@
-"""No module of the port imports jax, even indirectly: every module (and
-chip_smoke.py) is imported in a fresh interpreter where `import jax`
-fails."""
+"""The port stands alone: no module of it imports jax or the JAX package
+`aes_zero_knowledge_proof_circuit_tpu`, even indirectly or inside a
+function.
 
+* every module (and chip_smoke.py) is imported in a fresh interpreter where
+  both `import jax` and `import aes_zero_knowledge_proof_circuit_tpu` fail;
+* an AST scan of every source file of the port, chip_smoke.py and
+  scripts/profile_torch_prove.py finds no import that names either;
+* the toy circuit is built, indexed, proved (zk=False, CPU) and verified by
+  the port alone in such an interpreter."""
+
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -12,6 +20,12 @@ import pytest
 import aes_zero_knowledge_proof_circuit_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parent.parent
+JAX_PACKAGE = "aes_zero_knowledge_proof_circuit_tpu"
+BLOCK = (
+    "import sys\n"
+    "sys.modules['jax'] = None\n"
+    f"sys.modules[{JAX_PACKAGE!r}] = None\n"
+)
 
 
 def port_modules():
@@ -21,27 +35,113 @@ def port_modules():
     return sorted(names)
 
 
+def scanned_files():
+    files = sorted(Path(port.__path__[0]).rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "scripts" / "profile_torch_prove.py"]
+
+
 def test_module_list_covers_the_slice():
     names = set(port_modules())
     for leaf in ("api", "convert", "kernels", "ops.field", "ops.ntt",
                  "ops.poly", "ops.witness", "ops.curve", "ops.msm",
                  "ops.msm_device", "ops.msm_pallas", "ops.msm_ntt_mul",
                  "utils.srs", "utils.native", "marlin.indexer",
-                 "marlin.prover", "__main__"):
+                 "marlin.prover", "__main__", "marlin.verifier",
+                 "models.aes_circuit", "ops.kzg", "utils.serialize",
+                 "utils.transcript", "utils.device"):
         assert f"{port.__name__}.{leaf}" in names
 
 
 @pytest.mark.parametrize("module", port_modules() + ["chip_smoke"])
 def test_imports_without_jax(module):
-    code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
+    code = BLOCK + (
         "import importlib\n"
         f"importlib.import_module({module!r})\n"
         "bad = sorted(m for m, v in sys.modules.items() if v is not None "
-        "and (m == 'jax' or m.startswith(('jax.', 'jaxlib'))))\n"
+        "and (m == 'jax' or m.startswith(('jax.', 'jaxlib', "
+        f"{JAX_PACKAGE + '.'!r}))))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def _foreign_imports(path: Path):
+    """(line, name) of every import in `path` that names jax or the JAX
+    package, at any depth (inside functions too)."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", JAX_PACKAGE):
+                bad.append((node.lineno, name))
+    return bad
+
+
+@pytest.mark.parametrize("path", scanned_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_names_the_jax_package(path):
+    assert _foreign_imports(path) == []
+
+
+def test_scan_sees_imports_inside_functions(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\n\ndef g():\n"
+                 f"    from {JAX_PACKAGE}.ops import kzg\n"
+                 "    import jax.numpy\n")
+    assert _foreign_imports(f) == [(4, f"{JAX_PACKAGE}.ops"),
+                                   (5, "jax.numpy")]
+
+
+TOY_PROVE = BLOCK + """
+import random
+from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import indexer
+from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import verifier
+from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import TorchProver
+from aes_zero_knowledge_proof_circuit_tpu_torch.models.r1cs import R1CS
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import R_MOD
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils.serialize import (
+    deserialize_proof, serialize_proof)
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+    generate_srs_native)
+
+cs = R1CS()
+out1, out2 = cs.new_instance_var(), cs.new_instance_var()
+x, y, z = cs.new_witness_var(), cs.new_witness_var(), cs.new_witness_var()
+cs.enforce({x: 1}, {y: 1}, {out1: 1})
+cs.enforce({x: 1, y: 1}, {z: 1}, {out2: 1})
+cs.enforce({x: 1}, {x: 1}, {z: 1})
+cs = cs.finalized()
+xv, yv = 3, 4
+zv = xv * xv % R_MOD
+inst = [1, xv * yv % R_MOD, (xv + yv) * zv % R_MOD]
+na, nb, nc = cs.nnz()
+srs = generate_srs_native(indexer.required_degree(
+    cs.num_constraints, cs.num_variables, max(na, nb, nc)), random.Random(5))
+pk = indexer.index(cs, srs, "cpu")
+proof = TorchProver(pk, "cpu").prove(inst, [xv, yv, zv], zk=False)
+back = deserialize_proof(serialize_proof(proof))
+assert verifier.verify(pk.vk, inst, back)
+bad = list(inst)
+bad[1] = (bad[1] + 1) % R_MOD
+assert not verifier.verify(pk.vk, bad, back)
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m == "jax" or m.startswith(("jax.", "jaxlib", "aes_zero_knowledge_proof_circuit_tpu."))))
+assert not loaded, loaded
+print("proved and verified")
+"""
+
+
+def test_toy_prove_without_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", TOY_PROVE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("proved and verified")

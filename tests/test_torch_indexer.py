@@ -1,6 +1,7 @@
 """The port's indexer: the 9 index commitments, made on the 8-bit bucket
 scan (ops/msm_device.py, plain K4 version here), and the slot layout equal
-the host indexer's, on the toy circuit and on the u32 add circuit."""
+the host indexer's, on the toy circuit and on the u32 add circuit. The JAX
+package builds the circuit and the SRS; `convert` carries them across."""
 
 import random
 
@@ -8,10 +9,11 @@ import pytest
 
 from aes_zero_knowledge_proof_circuit_tpu.marlin import indexer
 from aes_zero_knowledge_proof_circuit_tpu.models.ops_demo import build_u32_add
-from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import indexer as tindexer
-from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+from aes_zero_knowledge_proof_circuit_tpu.parallel.srs_gen import (
     generate_srs_native,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch import convert
+from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import indexer as tindexer
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -30,9 +32,12 @@ def test_index_commitments_equal_host(build):
                                    max(na, nb, nc))
     srs = generate_srs_native(need, random.Random(5))
     want = indexer.index(cs, srs)
-    got = tindexer.index(cs, srs, "cpu")
-    assert [c.point for c in got.vk.index_comms] == [
-        c.point for c in want.vk.index_comms]
+    got = tindexer.index(convert.r1cs_from(cs), convert.srs_from(srs), "cpu")
+    xy = lambda p: None if p.inf else (int(p.x), int(p.y))
+    assert [xy(c.point) for c in got.vk.index_comms] == [
+        xy(c.point) for c in want.vk.index_comms]
+    assert tindexer.required_degree(cs.num_constraints, cs.num_variables,
+                                    max(na, nb, nc)) == need
     assert got.var_to_slot == want.var_to_slot
     assert (got.log_n, got.log_x, got.vk.log_ks) == (
         want.log_n, want.log_x, want.vk.log_ks)

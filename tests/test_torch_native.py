@@ -1,6 +1,7 @@
-"""The port's loader of the native host library (utils/native.py): it
-recovers the library after a lost build race, reports why when it cannot,
-and processes that start at once on an empty cache all load it."""
+"""The port's loader of its own native host library (utils/native.py,
+native/zkhost.cpp): it recovers the library after a lost build race,
+reports why when it cannot, processes that start at once on an empty cache
+all load it, and it builds and loads a library file of its own name."""
 
 import os
 import subprocess
@@ -9,7 +10,6 @@ from pathlib import Path
 
 import pytest
 
-from aes_zero_knowledge_proof_circuit_tpu import native as jax_native
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import native as loader
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -17,28 +17,28 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def test_recovers_after_a_lost_race(monkeypatch):
     monkeypatch.delenv("ZKAES_NO_NATIVE", raising=False)
-    # the state the JAX loader is left in when its build lost a race
-    monkeypatch.setattr(jax_native, "_TRIED", True)
-    monkeypatch.setattr(jax_native, "_LIB", None)
-    assert jax_native.lib() is None
-    assert loader.native() is jax_native
-    assert jax_native._LIB is not None
-    assert jax_native._LIB.zk_version() == 1
+    # the state the loader is left in when its build lost a race
+    monkeypatch.setattr(loader, "_TRIED", True)
+    monkeypatch.setattr(loader, "_LIB", None)
+    assert loader.lib() is None
+    assert loader.native() is loader
+    assert loader._LIB is not None
+    assert loader._LIB.zk_version() == 1
 
 
 def test_raises_with_the_reason(monkeypatch, tmp_path):
     monkeypatch.delenv("ZKAES_NO_NATIVE", raising=False)
-    monkeypatch.setattr(jax_native, "_TRIED", False)
-    monkeypatch.setattr(jax_native, "_LIB", None)
-    monkeypatch.setattr(jax_native, "_SRC", str(tmp_path / "missing.cpp"))
+    monkeypatch.setattr(loader, "_TRIED", False)
+    monkeypatch.setattr(loader, "_LIB", None)
+    monkeypatch.setattr(loader, "_SRC", str(tmp_path / "missing.cpp"))
     with pytest.raises(loader.NativeUnavailable, match="missing.cpp"):
         loader.native()
 
 
 def test_raises_when_disabled(monkeypatch):
     monkeypatch.setenv("ZKAES_NO_NATIVE", "1")
-    monkeypatch.setattr(jax_native, "_TRIED", False)
-    monkeypatch.setattr(jax_native, "_LIB", None)
+    monkeypatch.setattr(loader, "_TRIED", False)
+    monkeypatch.setattr(loader, "_LIB", None)
     with pytest.raises(loader.NativeUnavailable, match="ZKAES_NO_NATIVE"):
         loader.native()
 
@@ -48,7 +48,9 @@ def test_concurrent_first_loads_on_an_empty_cache(tmp_path):
     env.pop("ZKAES_NO_NATIVE", None)
     code = ("from aes_zero_knowledge_proof_circuit_tpu_torch.utils.native "
             "import native\n"
-            "assert native()._LIB.zk_version() == 1\n"
+            "lib = native()._LIB\n"
+            "assert lib.zk_version() == 1\n"
+            "assert 'libzkhost_torch_' in lib._name, lib._name\n"
             "print('loaded')\n")
     procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -68,3 +70,6 @@ def test_concurrent_first_loads_on_an_empty_cache(tmp_path):
     built = sorted(f.name for f in (tmp_path / "cache" / "native").iterdir())
     assert [f for f in built if f.endswith(".so")] and not [
         f for f in built if f.endswith(".tmp")]
+    # only the port's own library: nothing of another package was built
+    assert all(f.startswith("libzkhost_torch_")
+               for f in built if f.endswith(".so"))

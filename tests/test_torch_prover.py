@@ -1,8 +1,10 @@
 """The port's prover as a whole, on the toy circuit of
-tests/test_marlin.py (CPU: plain kernel versions).
+tests/test_marlin.py (CPU: plain kernel versions). The JAX package builds
+the circuit and the key; `convert.proving_key_from` carries the key across.
 
-* zk=False proofs equal the host prover's field for field;
-* zk=True proofs verify and a tampered instance is rejected;
+* zk=False proofs equal the host prover's byte for byte;
+* zk=True proofs verify (the port's verifier) and a tampered instance is
+  rejected;
 * (slow) zk=False and seeded zk=True proofs equal JaxProver's."""
 
 import random
@@ -12,7 +14,13 @@ import pytest
 
 from aes_zero_knowledge_proof_circuit_tpu.marlin import indexer, prover, verifier
 from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
+from aes_zero_knowledge_proof_circuit_tpu.utils import serialize as jax_ser
+from aes_zero_knowledge_proof_circuit_tpu_torch import convert
+from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import (
+    verifier as tverifier,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import TorchProver
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils import serialize as ser
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -30,12 +38,12 @@ def toy():
 
 @pytest.fixture(scope="module")
 def toy_prover(toy):
-    return TorchProver(toy[2], "cpu")
+    return TorchProver(convert.proving_key_from(toy[2]), "cpu")
 
 
-def assert_same_proof(a, b):
-    for name in a.__dataclass_fields__:
-        assert getattr(a, name) == getattr(b, name), name
+def assert_same_proof(got, want):
+    """A port proof and a JAX-package proof, as serialized bytes."""
+    assert ser.serialize_proof(got) == jax_ser.serialize_proof(want)
 
 
 def test_nonzk_proof_equals_host(toy, toy_prover):
@@ -45,18 +53,20 @@ def test_nonzk_proof_equals_host(toy, toy_prover):
     got = toy_prover.prove(inst, np.asarray(wit), rng=random.Random(2),
                            zk=False)
     assert_same_proof(got, want)
-    assert verifier.verify(pk.vk, inst, got)
+    assert tverifier.verify(toy_prover.pk.vk, inst, got)
+    assert verifier.verify(pk.vk, inst, want)
 
 
 def test_zk_proof_verifies_and_rejects_tampered_instance(toy, toy_prover):
-    _cs, assignment, pk = toy
+    _cs, assignment, _pk = toy
     inst, wit = assignment(6, 2)
     proof = toy_prover.prove(inst, np.asarray(wit), rng=random.Random(3),
                              zk=True)
-    assert verifier.verify(pk.vk, inst, proof)
+    vk = toy_prover.pk.vk
+    assert tverifier.verify(vk, inst, proof)
     bad = list(inst)
     bad[1] = (bad[1] + 1) % R_MOD
-    assert not verifier.verify(pk.vk, bad, proof)
+    assert not tverifier.verify(vk, bad, proof)
     assert list(toy_prover.last_stage_times) == [
         "r1_polys", "r1_commits", "r2_polys", "r2_commits",
         "r3_polys_commits", "evals", "open_beta1", "open_beta2"]
@@ -84,4 +94,4 @@ def test_seeded_zk_proof_equals_jax_prover(toy, toy_prover):
     got = toy_prover.prove(inst, np.asarray(wit), rng=random.Random(99),
                            zk=True)
     assert_same_proof(got, want)
-    assert verifier.verify(pk.vk, inst, got)
+    assert tverifier.verify(toy_prover.pk.vk, inst, got)

@@ -8,6 +8,7 @@ from aes_zero_knowledge_proof_circuit_tpu.models.ops_demo import (
     build_u32_xor,
 )
 from aes_zero_knowledge_proof_circuit_tpu.ops.witness_jax import WitnessEvaluator
+from aes_zero_knowledge_proof_circuit_tpu_torch import convert
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.witness import (
     WitnessEvaluator as TorchWitness,
 )
@@ -23,7 +24,7 @@ def bits(v: int) -> np.ndarray:
 @pytest.mark.parametrize("which", ["add", "xor"])
 def test_witness_matches_jax_and_plan(which):
     r1cs, plan = BUILDERS[which]()
-    port = TorchWitness(plan, "cpu")
+    port = TorchWitness(convert.plan_from(plan), "cpu")
     ref = WitnessEvaluator(plan)
     pairs = np.random.default_rng(5).integers(0, 1 << 32, size=(4, 2),
                                               dtype=np.uint64)
