@@ -148,6 +148,48 @@ ZK_DEV void zk_store(uint32_t* dst, const uint32_t* src) {
   for (int j = 0; j < L; ++j) dst[j] = src[j];
 }
 
+// One element as L / 4 16-byte vectors (src and dst 16-byte aligned: rows
+// of 32 or 48 bytes in a tensor the wrapper has checked).
+template <int L>
+ZK_DEV void zk_load_v(uint32_t* dst, const uint32_t* src) {
+#pragma unroll
+  for (int q = 0; q < L / 4; ++q) {
+    uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + q);
+    dst[4 * q] = v.x;
+    dst[4 * q + 1] = v.y;
+    dst[4 * q + 2] = v.z;
+    dst[4 * q + 3] = v.w;
+  }
+}
+
+template <int L>
+ZK_DEV void zk_store_v(uint32_t* dst, const uint32_t* src) {
+#pragma unroll
+  for (int q = 0; q < L / 4; ++q)
+    reinterpret_cast<uint4*>(dst)[q] =
+        make_uint4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
+}
+
+// a^e for the exponent's nbits >= 1 low bits (e as u32 limbs, low first),
+// left to right square-and-multiply in one thread; 0^e = 0. Used where
+// one thread's chain is the whole work (K1's pow, batch_inv's one
+// inversion), so it takes the C product, the lower-latency one in a
+// lone thread.
+template <class F>
+ZK_DEV void zk_pow(uint32_t* out, const uint32_t* a, const uint32_t* e,
+                   int nbits) {
+  constexpr int L = F::L;
+  uint32_t acc[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) acc[j] = a[j];
+  for (int bit = nbits - 2; bit >= 0; --bit) {
+    zk_mul<F>(acc, acc, acc);
+    if ((e[bit >> 5] >> (bit & 31)) & 1u) zk_mul<F>(acc, acc, a);
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) out[j] = acc[j];
+}
+
 // -- Fq with PTX carry chains (kernels K3 and K4) ------------------------------
 //
 // The same Montgomery-384 arithmetic as zk_mul<Fq> / zk_add<Fq> / zk_sub<Fq>

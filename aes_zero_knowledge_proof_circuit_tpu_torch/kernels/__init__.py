@@ -40,7 +40,9 @@ _SIGNATURES = {
     "zk_field_mul": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "zk_field_add": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "zk_field_sub": [_P, _P, _P, _LL, _I, _I, _I, _P],
-    "zk_ntt_stage": [_P, _P, _LL, _LL, _P],
+    "zk_field_pow": [_P, _P, _P, _I, _LL, _I, _P],
+    "zk_batch_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
+    "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "zk_msm_g1": [_P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P, _P],
     "zk_msm_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _I, _P,
@@ -54,10 +56,12 @@ class KernelError(RuntimeError):
 
 
 class Kernel:
-    """One C entry point of the library, with its launch count."""
+    """One C entry point of the library, with its launch count: each call
+    adds the number of kernels the entry point launches."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, kernels_per_call: int = 1):
         self.name = name
+        self.kernels_per_call = kernels_per_call
         self.launches = 0
 
     def __call__(self, *args) -> None:
@@ -68,7 +72,7 @@ class Kernel:
         err = fn(*args, stream)
         if err != 0:
             raise KernelError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += 1
+        self.launches += self.kernels_per_call
 
 
 class _Library:
@@ -207,18 +211,21 @@ def resource_usage() -> list:
     return rows
 
 
-# the kernels, one per source file; fr_ops counts mul, add and sub launches
+# the kernels, one entry per source file; fr_ops counts the launches of
+# mul, add, sub, pow and batch_inv (three kernels a call)
 field_mul = Kernel("zk_field_mul")
 field_add = Kernel("zk_field_add")
 field_sub = Kernel("zk_field_sub")
-ntt_stage = Kernel("zk_ntt_stage")
+field_pow = Kernel("zk_field_pow")
+batch_inv = Kernel("zk_batch_inv", kernels_per_call=3)
+ntt_pass = Kernel("zk_ntt_pass")
 msm_g1 = Kernel("zk_msm_g1")
 msm_u8 = Kernel("zk_msm_u8")
 fq_cols_mul = Kernel("zk_fq_cols_mul")
 
 KERNELS: Dict[str, tuple] = {
-    "fr_ops": (field_mul, field_add, field_sub),
-    "ntt": (ntt_stage,),
+    "fr_ops": (field_mul, field_add, field_sub, field_pow, batch_inv),
+    "ntt": (ntt_pass,),
     "msm": (msm_g1,),
     "msm_u8": (msm_u8,),
     "fq_cols": (fq_cols_mul,),

@@ -7,11 +7,12 @@ reduced below p:
     Fr: [.., 8],  R = 2^256        Fq: [.., 12], R = 2^384
 
 Every op returns fully reduced limbs, so equality of values is equality of
-rows. mul, add and sub run kernel K1 (csrc/fr_ops.cu) on CUDA tensors; on
-CPU tensors they run the plain PyTorch versions below, which compute the
-same function in the same layout. The plain versions work on 16-bit
-half-limbs, since PyTorch has no unsigned 32x32->64 multiply: every partial
-product and column sum stays below 2^53, exact in int64 and in float64.
+rows. mul, add, sub, pow (and inv) and batch_inv run kernel K1
+(csrc/fr_ops.cu) on CUDA tensors; on CPU tensors they run the plain PyTorch
+versions below, which compute the same function in the same layout. The
+plain versions work on 16-bit half-limbs, since PyTorch has no unsigned
+32x32->64 multiply: every partial product and column sum stays below 2^53,
+exact in int64 and in float64.
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ from .. import kernels
 
 MASK16 = 0xFFFF
 MASK32 = 0xFFFFFFFF
+# batch_inv's chunk of rows a thread runs through, and the chunks a block
+# scans: the kernel's kChunk and kBlock (csrc/fr_ops.cu)
+INV_CHUNK = 8
+INV_BLOCK = 256
 
 
 def to_u32(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +69,13 @@ def _normalize(x: torch.Tensor, bits: int) -> torch.Tensor:
             return x
         x[..., :-1] &= mask
         x[..., 1:] += c
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and 16-byte aligned, as the kernels' vector loads need
+    (a copy only for a view that starts mid-vector)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _int_limbs(v: int, n: int, bits: int) -> List[int]:
@@ -213,14 +225,59 @@ class FieldOps:
         res = torch.where((d[..., -1] < 0).unsqueeze(-1), fix, d)
         return from_u32(res[..., :self.L])
 
+    def plain_pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e rowwise by left-to-right square-and-multiply (0^e = 0 for
+        e > 0)."""
+        acc = self.const("one", a.device).expand(a.shape[0], self.L)
+        for bit in bin(e)[2:]:
+            acc = self.plain_mul(acc, acc)
+            if bit == "1":
+                acc = self.plain_mul(acc, a)
+        return acc
+
+    def plain_batch_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Elementwise inverse (zeros map to zero) by Montgomery's trick in
+        the kernel's chunks: zeros replaced by one, then _plain_inv_nonzero."""
+        zero = self.is_zero(a)
+        safe = self.select(zero, self.const("one", a.device).expand_as(a), a)
+        return self.select(zero, torch.zeros_like(a),
+                           self._plain_inv_nonzero(safe))
+
+    def _plain_inv_nonzero(self, x: torch.Tensor) -> torch.Tensor:
+        """Inverses of nonzero rows: running products inside chunks of
+        INV_CHUNK rows (vectorised across chunks), the chunk totals inverted
+        the same way (one Fermat exponentiation at the top), then each chunk
+        swept backwards: x_j^-1 = (x_0 .. x_j)^-1 (x_0 .. x_(j-1))."""
+        n, c = x.shape[0], INV_CHUNK
+        if n == 1:
+            return self.plain_pow(x, self.modulus - 2)
+        m = -(-n // c)
+        one = self.const("one", x.device)
+        xs = torch.cat([x, one.expand(m * c - n, self.L)]).view(m, c, self.L)
+        prefix = [xs[:, 0]]
+        for j in range(1, c):
+            prefix.append(self.plain_mul(prefix[-1], xs[:, j]))
+        running = self._plain_inv_nonzero(prefix[-1])
+        out = [None] * c
+        for j in range(c - 1, 0, -1):
+            out[j] = self.plain_mul(running, prefix[j - 1])
+            running = self.plain_mul(running, xs[:, j])
+        out[0] = running
+        return torch.stack(out, dim=1).reshape(m * c, self.L)[:n]
+
     # -- K1 wrappers ------------------------------------------------------------
 
+    def _check(self, x: torch.Tensor) -> None:
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != self.L:
+            raise ValueError(
+                f"expected [N, {self.L}] int32 limbs, got "
+                f"{tuple(x.shape)} {x.dtype}")
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no kernel for device {x.device}")
+
     def _operands(self, a: torch.Tensor, b: torch.Tensor):
-        for x in (a, b):
-            if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != self.L:
-                raise ValueError(
-                    f"expected [N, {self.L}] int32 limbs, got "
-                    f"{tuple(x.shape)} {x.dtype}")
+        self._check(a)
+        self._check(b)
         if a.device != b.device:
             raise ValueError(f"operands on {a.device} and {b.device}")
         na, nb = a.shape[0], b.shape[0]
@@ -232,9 +289,7 @@ class FieldOps:
         n = self._operands(a, b)
         if a.device.type == "cpu":
             return plain(a, b)
-        if a.device.type != "cuda":
-            raise ValueError(f"no kernel for device {a.device}")
-        a, b = a.contiguous(), b.contiguous()
+        a, b = aligned(a), aligned(b)
         out = torch.empty((n, self.L), dtype=torch.int32, device=a.device)
         kernel(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, self.field_id,
                int(a.shape[0] == 1 and n > 1), int(b.shape[0] == 1 and n > 1))
@@ -249,6 +304,58 @@ class FieldOps:
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self._binop(kernels.field_sub, self.plain_sub, a, b)
 
+    def _exponent(self, e: int, device) -> torch.Tensor:
+        """e's u32 limbs (low first) as an int32 tensor on `device`."""
+        key = (f"exponent {e}", str(device))
+        t = self._consts.get(key)
+        if t is None:
+            t = from_u32(torch.tensor(_int_limbs(e, -(-e.bit_length() // 32),
+                                                 32), dtype=torch.int64)
+                         ).to(device)
+            self._consts[key] = t
+        return t
+
+    def pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e rowwise, e >= 0: one launch of K1's pow on a CUDA tensor."""
+        self._check(a)
+        if e < 0:
+            raise ValueError("negative exponent")
+        if e == 0:
+            return self.const("one", a.device).expand(a.shape[0],
+                                                      self.L).clone()
+        if a.device.type == "cpu":
+            return self.plain_pow(a, e)
+        a = aligned(a)
+        out = torch.empty_like(a)
+        kernels.field_pow(a.data_ptr(), out.data_ptr(),
+                          self._exponent(e, a.device).data_ptr(),
+                          e.bit_length(), a.shape[0], self.field_id)
+        return out
+
+    def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Elementwise inverse of [N, L] (zeros map to zero), as
+        F32Ops.batch_inv: Montgomery's trick with ONE Fermat inversion, in
+        three launches of K1 on a CUDA tensor."""
+        self._check(a)
+        if a.device.type == "cpu":
+            return self.plain_batch_inv(a)
+        a = aligned(a)
+        n = a.shape[0]
+        out = torch.empty_like(a)
+        if n == 0:
+            return out
+        blocks = -(-n // (INV_CHUNK * INV_BLOCK))
+        ctot = a.new_empty((blocks * INV_BLOCK, self.L))   # chunk totals
+        btot = a.new_empty((blocks, self.L))     # block totals, then inverses
+        bpre = a.new_empty((blocks, self.L))     # their running products
+        e = self.modulus - 2
+        kernels.batch_inv(a.data_ptr(), out.data_ptr(), ctot.data_ptr(),
+                          btot.data_ptr(), bpre.data_ptr(),
+                          self.const("one", a.device).data_ptr(),
+                          self._exponent(e, a.device).data_ptr(),
+                          e.bit_length(), n, self.field_id)
+        return out
+
     # -- compositions -----------------------------------------------------------
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
@@ -257,16 +364,8 @@ class FieldOps:
     def square(self, a: torch.Tensor) -> torch.Tensor:
         return self.mul(a, a)
 
-    def pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
-        acc = self.const("one", a.device).expand(a.shape[0], self.L)
-        for bit in bin(e)[2:]:
-            acc = self.mul(acc, acc)
-            if bit == "1":
-                acc = self.mul(acc, a)
-        return acc
-
     def inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Fermat inverse, elementwise (0 maps to 0)."""
+        """Fermat inverse, elementwise (0 maps to 0): one pow launch."""
         return self.pow(a, self.modulus - 2)
 
     def is_zero(self, a: torch.Tensor) -> torch.Tensor:
@@ -276,31 +375,6 @@ class FieldOps:
     def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                ) -> torch.Tensor:
         return torch.where(cond.unsqueeze(-1), a, b)
-
-    def prefix_product(self, a: torch.Tensor, reverse: bool = False
-                       ) -> torch.Tensor:
-        """Inclusive running product along axis 0 (Hillis-Steele: log2 N
-        rounds of one elementwise product each)."""
-        x = a.flip(0) if reverse else a
-        d = 1
-        while d < x.shape[0]:
-            x = torch.cat([x[:d], self.mul(x[:-d], x[d:])])
-            d <<= 1
-        return x.flip(0) if reverse else x
-
-    def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Elementwise inverse of [N, L] by prefix and suffix products and ONE
-        Fermat inversion (zeros map to zero), as F32Ops.batch_inv."""
-        zero = self.is_zero(a)
-        one = self.const("one", a.device)
-        safe = self.select(zero, one.expand_as(a), a)
-        prefix = self.prefix_product(safe)
-        suffix = self.prefix_product(safe, reverse=True)
-        total_inv = self.inv(prefix[-1:])
-        p_shift = torch.cat([one, prefix[:-1]])
-        s_shift = torch.cat([suffix[1:], one])
-        out = self.mul(self.mul(p_shift, s_shift), total_inv)
-        return self.select(zero, torch.zeros_like(out), out)
 
     def to_canonical_limbs(self, a: torch.Tensor) -> torch.Tensor:
         """Montgomery -> standard form limbs (the MSM scalar layout)."""

@@ -1,17 +1,20 @@
 """Radix-2 NTT over Fr limb tensors — counterpart of ops/ntt_jax.py.
 
-Decimation in time over [n, 8] Montgomery limbs: a bit-reversal gather,
-then log2(n) butterfly stages, each one launch of kernel K2
-(csrc/ntt.cu) on CUDA tensors or the plain PyTorch stage below on CPU
-tensors. Every stage's twiddles are strided reads of ONE [n/2, 8] table of
-omega powers, built once per size on the tensor's device. The inverse
-transform runs the same stages on the inverse table and scales by 1/n
-with kernel K1.
+Decimation in time over [n, 8] Montgomery limbs, run in passes of at most
+PASS_LOG consecutive stages: one launch of kernel K2 (csrc/ntt.cu) a pass on
+CUDA tensors, the plain PyTorch pass below on CPU tensors. A pass over
+stages t0 .. t0 + s - 1 works on n / 2^s independent tiles of 2^s elements
+spaced 2^t0 apart (`pass_widths` splits log2 n evenly: two passes from 2^11
+to 2^20). The first pass reads its input in bit-reversed order; the last
+multiplies by 1/n in the inverse transform. Every stage's twiddles are
+strided reads of ONE [n/2, 8] table of omega powers, built once per size on
+the tensor's device.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import List
 
 import torch
 
@@ -21,12 +24,22 @@ from .field_params import (
 )
 
 from .. import kernels
-from .field import fr_ops
+from .field import aligned, fr_ops
 
 F = fr_ops()
+PASS_LOG = 10          # stages a pass: tiles of 2^10 elements, 32 KB
 
 
-def bitrev_perm(log_n: int, device) -> torch.Tensor:
+def pass_widths(log_n: int, pass_log: int = PASS_LOG) -> List[int]:
+    """Stages of each pass: ceil(log_n / pass_log) passes, as even as
+    possible, the wider ones first."""
+    passes = max(1, -(-log_n // pass_log))
+    base, extra = divmod(log_n, passes)
+    return [base + 1] * extra + [base] * (passes - extra)
+
+
+@functools.lru_cache(maxsize=None)
+def _bitrev(log_n: int, device: str) -> torch.Tensor:
     idx = torch.arange(1 << log_n, dtype=torch.int64)
     rev = torch.zeros_like(idx)
     for b in range(log_n):
@@ -34,74 +47,109 @@ def bitrev_perm(log_n: int, device) -> torch.Tensor:
     return rev.to(device)
 
 
-def plain_stage(x: torch.Tensor, table: torch.Tensor, half: int) -> None:
-    """One DIT stage in place: (l + r*w, l - r*w) over groups of 2*half,
-    w = table[j * n / (2 half)]. Same function as K2, in plain PyTorch."""
-    n = x.shape[0]
-    m = 2 * half
-    tw = table[:: n // m][:half].unsqueeze(0)
-    xs = x.view(n // m, m, F.L)
-    left = xs[:, :half].clone()
-    prod = F.plain_mul(xs[:, half:], tw)
-    xs[:, :half] = F.plain_add(left, prod)
-    xs[:, half:] = F.plain_sub(left, prod)
+def plain_pass(src: torch.Tensor, table: torch.Tensor, log_n: int, t0: int,
+               s: int, bitrev: bool, scale=None) -> torch.Tensor:
+    """One pass in plain PyTorch, the same function as K2's: stages t0 ..
+    t0 + s - 1 on tiles [hi, mid, lo] = [n / 2^(t0+s), 2^s, 2^t0] of the
+    input (read in bit-reversed order if `bitrev`), then the scale."""
+    n = 1 << log_n
+    x = src[_bitrev(log_n, str(src.device))] if bitrev else src.clone()
+    tiles = x.view(n >> (t0 + s), 1 << s, 1 << t0, F.L)
+    lo = torch.arange(1 << t0, device=x.device)
+    for u in range(s):
+        h = 1 << u
+        # stage t0 + u: offset j = (mid mod 2^u) 2^t0 + lo in its group,
+        # twiddle omega^(j n / 2^(t0+u+1)), table row j (n >> (t0+u+1))
+        j = (torch.arange(h, device=x.device)[:, None] << t0) | lo[None, :]
+        tw = table[j * (n >> (t0 + u + 1))]              # [h, 2^t0, 8]
+        g = tiles.view(tiles.shape[0], (1 << s) // (2 * h), 2, h, 1 << t0,
+                       F.L)
+        left = g[:, :, 0].clone()
+        prod = F.plain_mul(g[:, :, 1], tw)
+        g[:, :, 0] = F.plain_add(left, prod)
+        g[:, :, 1] = F.plain_sub(left, prod)
+    if scale is not None:
+        x = F.plain_mul(x, scale)
+    return x
 
 
-def ntt_stage(x: torch.Tensor, table: torch.Tensor, half: int) -> None:
-    """K2 wrapper: one stage in place on [n, 8] (plain stage on CPU)."""
-    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != F.L:
-        raise ValueError(f"expected [n, 8] int32, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        plain_stage(x, table, half)
-        return
-    if x.device.type != "cuda" or table.device != x.device:
-        raise ValueError(f"no kernel for {x.device} / table on {table.device}")
-    if not (x.is_contiguous() and table.is_contiguous()):
-        raise ValueError("ntt_stage needs contiguous tensors")
-    if table.shape[0] < x.shape[0] // 2:
-        raise ValueError("twiddle table shorter than n/2")
-    kernels.ntt_stage(x.data_ptr(), table.data_ptr(), x.shape[0], half)
+def ntt_pass(src: torch.Tensor, dst: torch.Tensor, table: torch.Tensor,
+             log_n: int, t0: int, s: int, bitrev: bool, scale=None) -> None:
+    """K2 wrapper: one pass from src into dst ([n, 8] int32 on the card,
+    16-byte aligned; src is dst after the first pass)."""
+    kernels.ntt_pass(src.data_ptr(), dst.data_ptr(), table.data_ptr(),
+                     None if scale is None else scale.data_ptr(), log_n, t0,
+                     s, int(bitrev))
 
 
 class NTTEngine:
     """Forward and inverse NTT of one size on one device."""
 
-    def __init__(self, log_n: int, device):
+    def __init__(self, log_n: int, device, pass_log: int = PASS_LOG):
         from .poly import powers, scalar
 
         self.log_n = log_n
         self.n = 1 << log_n
         self.device = torch.device(device)
+        self.widths = pass_widths(log_n, pass_log)
         omega = root_of_unity(log_n) if log_n else 1
         half = max(1, self.n // 2)
-        self.perm = bitrev_perm(log_n, self.device)
         self.fwd_table = powers(scalar(omega, self.device), half)
         self.inv_table = powers(scalar(pow(omega, -1, R_MOD), self.device),
                                 half)
         self.n_inv = scalar(pow(self.n, -1, R_MOD), self.device)
 
-    def _run(self, x: torch.Tensor, table: torch.Tensor, stage) -> torch.Tensor:
+    def _check(self, x: torch.Tensor) -> None:
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != F.L:
+            raise ValueError(f"expected [n, 8] int32, got {tuple(x.shape)}")
         if x.shape[0] != self.n:
             raise ValueError(f"NTT of size {self.n} given {x.shape[0]} rows")
-        x = x[self.perm]                       # gather: a fresh tensor
-        for s in range(self.log_n):
-            stage(x, table, 1 << s)
+
+    def _passes(self):
+        """(t0, s, first, last) of each pass."""
+        t0 = 0
+        for i, s in enumerate(self.widths):
+            yield t0, s, i == 0, i == len(self.widths) - 1
+            t0 += s
+
+    def _run(self, x: torch.Tensor, table: torch.Tensor, scale) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return self._run_plain(x, table, scale)
+        self._check(x)
+        if x.device.type != "cuda" or table.device != x.device:
+            raise ValueError(f"no kernel for {x.device} / table on "
+                             f"{table.device}")
+        if self.log_n == 0:
+            return x.clone()
+        x = aligned(x)
+        out = torch.empty_like(x)
+        for t0, s, first, last in self._passes():
+            ntt_pass(x if first else out, out, table, self.log_n, t0, s,
+                     first, scale if last else None)
+        return out
+
+    def _run_plain(self, x, table, scale) -> torch.Tensor:
+        self._check(x)
+        if self.log_n == 0:
+            return x.clone()
+        for t0, s, first, last in self._passes():
+            x = plain_pass(x, table, self.log_n, t0, s, first,
+                           scale if last else None)
         return x
 
     def ntt(self, coeffs: torch.Tensor) -> torch.Tensor:
         """[n, 8] coefficients -> evaluations on <omega> (natural order)."""
-        return self._run(coeffs, self.fwd_table, ntt_stage)
+        return self._run(coeffs, self.fwd_table, None)
 
     def intt(self, evals: torch.Tensor) -> torch.Tensor:
-        return F.mul(self._run(evals, self.inv_table, ntt_stage), self.n_inv)
+        return self._run(evals, self.inv_table, self.n_inv)
 
     def ntt_plain(self, coeffs: torch.Tensor) -> torch.Tensor:
-        """The same transform through the plain stages (any device)."""
-        return self._run(coeffs, self.fwd_table, plain_stage)
+        """The same transform through the plain passes (any device)."""
+        return self._run_plain(coeffs, self.fwd_table, None)
 
     def intt_plain(self, evals: torch.Tensor) -> torch.Tensor:
-        return F.plain_mul(self._run(evals, self.inv_table, plain_stage),
-                           self.n_inv)
+        return self._run_plain(evals, self.inv_table, self.n_inv)
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,16 +8,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. build: the Hopper kernels from `aes_zero_knowledge_proof_circuit_tpu_torch/
    csrc/` (one nvcc per source, all at once, then one link), with the build
    time and ptxas's registers and spills for every kernel;
-3. kernels: K1 (field mul/add/sub), K2 (NTT stage), K3 (signed-window MSM:
-   bucket accumulation, reduction and window ladder), K4 (8-bit bucket-scan
-   MSM) and K5 (Fq digit-column product) against their plain PyTorch
-   versions on the card, bit-exact (MSM points compared as affine points),
-   plus K3 and K4 against the native host Pippenger at 2^16; kernel times
-   (synchronized, median of 3) and plain times at the main path's shapes,
-   where the timed outputs of kernel and plain version are compared as
-   well, each with the card's name and power limit and its bound (the
-   larger of bytes over 3.35 TB/s and 32-bit multiply-adds over
-   132 SMs x 64 a clock x 1.98 GHz);
+3. kernels: K1 (field mul/add/sub, pow and inv, batch_inv), K2 (NTT
+   passes), K3 (signed-window MSM: bucket accumulation, reduction and
+   window ladder), K4 (8-bit bucket-scan MSM) and K5 (Fq digit-column
+   product) against their plain PyTorch versions on the card, bit-exact
+   (MSM points compared as affine points; batch_inv and inv at 2^20 rows
+   with zero rows at the ends, at a chunk boundary and over a whole chunk;
+   the NTT both ways at 2^1 ... 2^20 across every pass boundary), plus K3
+   and K4 against the native host Pippenger at 2^16; kernel times and
+   plain times at the main path's shapes, where the timed outputs of
+   kernel and plain version are compared as well, each with the card's
+   name and power limit and its bound (the larger of bytes over 3.35 TB/s
+   and 32-bit multiply-adds over 132 SMs x 64 a clock x 1.98 GHz). K1, K2
+   and K5 are timed by CUDA events over 20 calls after a warm-up, queued
+   behind a device sleep so that the events time the card and not the
+   host's launches; the MSMs and the plain versions by the median of 3
+   synchronized wall-clock runs;
 4. the ntt_mul path (K5's entry point) at 2^20 columns, with its launches
    and a sample of its columns checked against host integers;
 5. main path: synthesize_keys(16) on the card (the index committed on K4),
@@ -64,7 +70,11 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_device as MD
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_ntt_mul as NM
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_pallas as MP
-from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fq_ops, fr_ops
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import (
+    INV_CHUNK,
+    fq_ops,
+    fr_ops,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
     generate_srs_native,
@@ -111,6 +121,23 @@ def set_bound(entry: dict, nbytes: float, imads: float) -> None:
     by_ops = imads / IMAD_S * 1e3
     entry.update(bound_ms=max(by_bytes, by_ops),
                  bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def events_ms(fn, reps: int = 20):
+    """(CUDA-event milliseconds a call over `reps` calls after a warm-up,
+    the last result). The calls are queued behind a device sleep longer
+    than their launches take on the host, so the events time the card."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)          # ~10 ms at the boost clock
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
 
 
 def timed(fn, reps: int = 3):
@@ -174,6 +201,17 @@ def phase_build() -> None:
             f"spill loads {ld} B")
 
 
+def with_zero_rows(x: torch.Tensor) -> torch.Tensor:
+    """x with zero rows at the first and last row, on each side of a
+    batch_inv chunk boundary and over a whole chunk."""
+    x = x.clone()
+    c = INV_CHUNK
+    for i in (0, c - 1, c, x.shape[0] - 1):
+        x[i] = 0
+    x[5 * c:6 * c] = 0
+    return x
+
+
 def check_field(results: dict, gen, dev, n: int) -> None:
     err = 0
     for f in (fr_ops(), fq_ops()):
@@ -186,9 +224,21 @@ def check_field(results: dict, gen, dev, n: int) -> None:
             if e:
                 raise AssertionError(f"K1 {kern.__name__} L={f.L}: err {e}")
             err = max(err, e)
+        z = with_zero_rows(a)
+        for name, got, want in (
+                ("batch_inv", f.batch_inv(z), f.plain_batch_inv(z)),
+                ("inv", f.inv(z), f.plain_pow(z, f.modulus - 2)),
+                ("batch_inv 1 row", f.batch_inv(z[1:2]),
+                 f.plain_batch_inv(z[1:2]))):
+            e = max_abs_err(got, want)
+            if e:
+                raise AssertionError(f"K1 {name} L={f.L}: err {e}")
+            err = max(err, e)
     torch.cuda.synchronize()
     results["fr_ops"]["max_abs_err"] = err
-    say(f"[K1] Fr and Fq mul/add/sub on {n} pairs + edges: bit-exact")
+    say(f"[K1] Fr and Fq mul/add/sub, batch_inv and inv on {n} rows + edges "
+        f"(zero rows at both ends, a chunk boundary and a whole chunk): "
+        f"bit-exact")
 
 
 def check_ntt(results: dict, gen, dev, sizes) -> None:
@@ -196,7 +246,7 @@ def check_ntt(results: dict, gen, dev, sizes) -> None:
     err = 0
     for log_n in sizes:
         eng = ntt_engine(log_n, dev)
-        x = random_elements(f, eng.n - 4, gen, dev)
+        x = random_elements(f, max(eng.n - 4, 0), gen, dev)[:eng.n]
         fwd = eng.ntt(x)
         err = max(err, max_abs_err(fwd, eng.ntt_plain(x)))
         err = max(err, max_abs_err(eng.intt(x), eng.intt_plain(x)))
@@ -205,7 +255,9 @@ def check_ntt(results: dict, gen, dev, sizes) -> None:
             raise AssertionError(f"K2 NTT 2^{log_n}: err {err}")
     torch.cuda.synchronize()
     results["ntt"]["max_abs_err"] = err
-    say(f"[K2] NTT/iNTT at 2^{list(sizes)} vs plain, round trip: bit-exact")
+    say(f"[K2] NTT/iNTT at 2^{list(sizes)} (passes of "
+        f"{[ntt_engine(k, dev).widths for k in sizes]} stages) vs plain, "
+        f"round trip: bit-exact")
 
 
 def msm_inputs(points, scalars, c=None):
@@ -372,7 +424,7 @@ def check_fq_cols(results: dict, gen, dev) -> None:
     # contiguous, or the wrapper's copy of a strided input would be timed
     b = torch.from_numpy(np.ascontiguousarray(
         fq_columns(n, gen)[:, gen.permutation(n)])).to(dev)
-    k, got = timed(lambda: NM.ntt_mul(a, b))
+    k, got = events_ms(lambda: NM.ntt_mul(a, b))
     p, want = timed(lambda: NM.plain_ntt_mul(a, b))
     err = max_abs_err(got, want)
     if err:
@@ -384,7 +436,8 @@ def check_fq_cols(results: dict, gen, dev) -> None:
     # radix correction)
     set_bound(results["fq_cols"], (2 * 51 + NM.PAD_IN) * 4 * n,
               6 * n * FQ_PRODUCT)
-    say(f"[K5] ntt_mul 2^20 columns: kernel {k:.3f} ms, plain {p:.3f} ms, "
+    say(f"[K5] ntt_mul 2^20 columns: kernel {k:.4f} ms (events), plain "
+        f"{p:.3f} ms, "
         f"bound {results['fq_cols']['bound_ms']:.4f} ms; bit-exact "
         f"(canonical digits), sampled columns equal host ints [{CARD}]")
 
@@ -415,6 +468,27 @@ def phase_ntt_mul(results: dict, gen, dev) -> None:
         f"host ints")
 
 
+def time_batch_inv(f, a: torch.Tensor, n: int) -> None:
+    """K1's batch_inv at n rows: events time, launches a call, bound (the
+    larger of its bytes, each row read and written once, and 3n products
+    plus the one Fermat chain's at the card's multiply-add rate)."""
+    kernels.reset_counts()
+    f.batch_inv(a)
+    launches = kernels.launch_counts()["fr_ops"]
+    k, got = events_ms(lambda: f.batch_inv(a))
+    p, want = timed(lambda: f.plain_batch_inv(a))
+    if max_abs_err(got, want):
+        raise AssertionError("K1 batch_inv 2^20 disagrees with plain")
+    e = f.modulus - 2
+    chain = e.bit_length() - 1 + bin(e).count("1") - 1
+    bound = {}
+    set_bound(bound, 2 * n * 32, (3 * n + chain) * FR_PRODUCT)
+    say(f"[time] Fr batch_inv 2^20: kernel {k:.4f} ms (events), "
+        f"{launches} launches a call, plain {p:.3f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; the Fermat chain "
+        f"{chain} products in one thread); equal [{CARD}]")
+
+
 def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
     """Kernel and plain times at the main path's shapes, with each
     kernel's bound. The outputs of the timed runs are compared too, so
@@ -423,7 +497,7 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
     n = 1 << 20
     a = random_elements(f, n - 4, gen, dev)
     b = random_elements(f, n - 4, gen, dev)
-    k, got = timed(lambda: f.mul(a, b))
+    k, got = events_ms(lambda: f.mul(a, b))
     p, want = timed(lambda: f.plain_mul(a, b))
     err = max_abs_err(got, want)
     if err:
@@ -431,19 +505,24 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
     fold_err(results["fr_ops"], err)
     results["fr_ops"].update(ms=k, plain_ms=p)
     set_bound(results["fr_ops"], 3 * n * 32, n * FR_PRODUCT)
-    say(f"[time] Fr mul 2^20: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
-        f"{results['fr_ops']['bound_ms']:.4f} ms; equal [{CARD}]")
+    say(f"[time] Fr mul 2^20: kernel {k:.4f} ms (events), plain {p:.3f} ms, "
+        f"bound {results['fr_ops']['bound_ms']:.4f} ms; equal [{CARD}]")
+    time_batch_inv(f, with_zero_rows(a), n)
     for log_n in (18, 19, 20):
         eng = ntt_engine(log_n, dev)
         x = random_elements(f, eng.n - 4, gen, dev)
-        k, got = timed(lambda: eng.ntt(x))
+        kernels.reset_counts()
+        eng.ntt(x)
+        launches = kernels.launch_counts()["ntt"]
+        k, got = events_ms(lambda: eng.ntt(x))
         p, want = timed(lambda: eng.ntt_plain(x))
         err = max_abs_err(got, want)
         if err:
             raise AssertionError(f"K2 NTT 2^{log_n}: err {err}")
         fold_err(results["ntt"], err)
-        say(f"[time] NTT 2^{log_n}: kernel {k:.3f} ms, plain {p:.3f} ms; "
-            f"equal [{CARD}]")
+        say(f"[time] NTT 2^{log_n}: kernel {k:.4f} ms (events, {launches} "
+            f"launches, passes {eng.widths}), plain {p:.3f} ms; equal "
+            f"[{CARD}]")
     # the whole NTT at 2^20: (n/2) log2(n) butterflies of one Fr product;
     # the input, the output and n/2 twiddles moved once
     results["ntt"].update(ms=k, plain_ms=p)
@@ -645,7 +724,7 @@ def run(smi: str) -> None:
                for name, (src, rep) in KERNEL_INFO.items()}
     gen = np.random.default_rng(0)
     check_field(results, gen, dev, 1 << 20)
-    check_ntt(results, gen, dev, (10, 20))
+    check_ntt(results, gen, dev, (1, 5, 10, 11, 12, 18, 19, 20))
     t0 = time.perf_counter()
     srs = generate_srs_native((1 << 16) - 1, random.Random(3))
     say(f"[K3] 2^16 test points from the native SRS generator: "

@@ -41,8 +41,10 @@ KEY = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
 MESSAGE = bytes(range(16))
 # (group, substrings of the device kernel name), first match wins
 GROUPS = (
-    ("K1 field_binop", ("field_binop",)),
-    ("K2 ntt_stage", ("ntt_stage",)),
+    ("K1 field_binop, field_pow, batch_inv",
+     ("field_binop", "field_pow", "inv_chunk_prefix", "inv_totals",
+      "inv_sweep")),
+    ("K2 ntt_pass", ("ntt_pass",)),
     ("K3 segment_accumulate", ("segment_accumulate",)),
     ("K3/K4 segment_merge", ("segment_merge",)),
     ("K3/K4 bucket_reduce", ("bucket_reduce",)),

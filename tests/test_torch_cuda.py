@@ -38,13 +38,59 @@ def test_k1_matches_plain(cuda, which):
         assert torch.equal(kern(a, b[:1]), plain(a, b[:1]))
 
 
+@pytest.mark.parametrize("which", ["fr", "fq"])
+def test_k1_batch_inv_and_pow_match_plain(cuda, which):
+    """batch_inv (three launches) and inv (one) at 2^12 rows, with zeros at
+    the first and last row, at a chunk boundary and over a whole chunk."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch import kernels
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import (
+        INV_CHUNK,
+        fq_ops,
+        fr_ops,
+    )
+
+    f = fr_ops() if which == "fr" else fq_ops()
+    a = _elements(f, 1 << 12, 4, cuda)
+    for i in (0, INV_CHUNK - 1, INV_CHUNK, (1 << 12) - 1):
+        a[i] = 0
+    a[3 * INV_CHUNK: 4 * INV_CHUNK] = 0
+    kernels.reset_counts()
+    got = f.batch_inv(a)
+    assert kernels.launch_counts()["fr_ops"] <= 3
+    assert torch.equal(got, f.plain_batch_inv(a))
+    kernels.reset_counts()
+    got = f.inv(a[:1000])
+    assert kernels.launch_counts()["fr_ops"] == 1
+    assert torch.equal(got, f.plain_pow(a[:1000], f.modulus - 2))
+    assert torch.equal(f.pow(a, 5), f.plain_pow(a, 5))
+    assert torch.equal(f.mul(a[1:], a[:-1]), f.plain_mul(a[1:], a[:-1]))
+
+
 def test_k2_matches_plain(cuda):
+    from aes_zero_knowledge_proof_circuit_tpu_torch import kernels
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
 
     eng = ntt_engine(12, cuda)
     x = _elements(fr_ops(), 1 << 12, 3, cuda)
+    kernels.reset_counts()
+    y = eng.ntt(x)
+    assert kernels.launch_counts()["ntt"] <= 2
+    assert torch.equal(y, eng.ntt_plain(x))
+    assert torch.equal(eng.intt(eng.ntt(x)), x)
+
+
+@pytest.mark.parametrize("log_n", [1, 10, 11, 12, 13])
+def test_k2_passes_match_plain(cuda, log_n):
+    """Forward and inverse (1/n folded into the last pass) on each side of
+    the one-pass/two-pass boundary."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
+
+    eng = ntt_engine(log_n, cuda)
+    x = _elements(fr_ops(), 1 << log_n, 10 + log_n, cuda)
     assert torch.equal(eng.ntt(x), eng.ntt_plain(x))
+    assert torch.equal(eng.intt(x), eng.intt_plain(x))
     assert torch.equal(eng.intt(eng.ntt(x)), x)
 
 

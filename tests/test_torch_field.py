@@ -19,7 +19,11 @@ from aes_zero_knowledge_proof_circuit_tpu.ops.field_f32 import (
 from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD, R_MOD
 from aes_zero_knowledge_proof_circuit_tpu.ops.pallas_field import pallas_mul
 from aes_zero_knowledge_proof_circuit_tpu_torch import convert
-from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fq_ops, fr_ops
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import (
+    INV_CHUNK,
+    fq_ops,
+    fr_ops,
+)
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 INTERP = jax.default_backend() != "tpu"
@@ -88,6 +92,52 @@ def test_batch_inv_inv_and_is_zero(which):
     assert f.is_zero(a).tolist() == [x == 0 for x in av]
     pick = f.select(torch.tensor([x % 2 == 0 for x in av]), a, f.neg(a))
     assert f.to_ints(pick) == [x if x % 2 == 0 else (-x) % mod for x in av]
+
+
+def _inv_case(case: str, mod: int):
+    """Inputs for batch_inv that reach its chunking and zero handling."""
+    c = INV_CHUNK
+    if case == "one_row":
+        return rand_ints(20, 1, mod)[:1]
+    if case == "all_zero":
+        return [0] * (3 * c + 1)
+    if case == "ragged":          # n not a multiple of the chunk
+        vals = rand_ints(21, 4 * c + 2, mod)
+        zeros = (0, c - 1, c, 2 * c - 1, len(vals) - 1)
+    elif case == "zero_chunk":    # a whole chunk of zeros
+        vals = rand_ints(22, 5 * c, mod)
+        zeros = tuple(range(2 * c, 3 * c)) + (len(vals) - 1,)
+    else:                         # "deep": totals inverted over two levels
+        vals = rand_ints(23, c ** 3 + 5, mod)
+        zeros = (c * c, c ** 3 - 1)
+    for i in zeros:
+        vals[i] = 0
+    return vals
+
+
+@pytest.mark.parametrize("which", ["fr", "fq"])
+@pytest.mark.parametrize("case", ["one_row", "all_zero", "ragged",
+                                  "zero_chunk", "deep"])
+def test_plain_batch_inv_matches_f32_engine(which, case):
+    """The chunked Montgomery trick (plain K1 batch_inv) against
+    F32Ops.batch_inv and Python's pow, zeros mapping to zero."""
+    port, ref, mod = FIELDS[which]
+    f, g = port(), ref()
+    vals = _inv_case(case, mod)
+    got = f.to_ints(f.plain_batch_inv(f.from_ints(vals, "cpu")))
+    want = digits_to_ints(g, g.batch_inv(jnp.asarray(ints_to_digits(g, vals))))
+    assert got == want
+    assert got == [pow(x, -1, mod) if x else 0 for x in vals]
+
+
+@pytest.mark.parametrize("which", ["fr", "fq"])
+def test_pow_matches_python(which):
+    port, _ref, mod = FIELDS[which]
+    f = port()
+    vals = rand_ints(24, 12, mod)
+    a = f.from_ints(vals, "cpu")
+    for e in (0, 1, 2, 5, (1 << 64) + 3, mod - 2):
+        assert f.to_ints(f.pow(a, e)) == [pow(x, e, mod) for x in vals]
 
 
 def test_canonical_limbs_and_small_ints():

@@ -4,8 +4,9 @@ function.
 
 * every module (and chip_smoke.py) is imported in a fresh interpreter where
   both `import jax` and `import aes_zero_knowledge_proof_circuit_tpu` fail;
-* an AST scan of every source file of the port, chip_smoke.py and
-  scripts/profile_torch_prove.py finds no import that names either;
+* an AST scan of every source file of the port, chip_smoke.py and the
+  card scripts (profile_torch_prove.py, time_field_ntt.py) finds no import
+  that names either;
 * the toy circuit is built, indexed, proved (zk=False, CPU) and verified by
   the port alone in such an interpreter."""
 
@@ -38,7 +39,8 @@ def port_modules():
 def scanned_files():
     files = sorted(Path(port.__path__[0]).rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "profile_torch_prove.py"]
+                    ROOT / "scripts" / "profile_torch_prove.py",
+                    ROOT / "scripts" / "time_field_ntt.py"]
 
 
 def test_module_list_covers_the_slice():

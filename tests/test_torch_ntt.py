@@ -61,6 +61,41 @@ def test_ntt_matches_jax_engine(log_n):
         G, eng.intt(jdig(vals)))
 
 
+@pytest.mark.parametrize("log_n", list(range(1, 13)))
+def test_plain_passes_match_host_and_jax(log_n):
+    """The plain K2 passes forced to at most 3 stages a pass (up to four
+    passes, bit reversal in the first, 1/n in the last) against the host
+    domain and the JAX NTTEngine."""
+    eng = N.NTTEngine(log_n, "cpu", pass_log=3)
+    assert sum(eng.widths) == log_n and max(eng.widths) <= 3
+    d = poly_host.domain(log_n)
+    vals = rand_ints(200 + log_n, d.n)
+    x = P.dpoly(vals, "cpu")
+    fwd = F.to_ints(eng.ntt(x))
+    assert fwd == d.ntt(vals)
+    assert F.to_ints(eng.intt(x)) == d.intt(vals)
+    jeng = NTTEngine(log_n)
+    assert fwd == digits_to_ints(G, jeng.ntt(jdig(vals)))
+    assert F.to_ints(eng.intt(x)) == digits_to_ints(G, jeng.intt(jdig(vals)))
+
+
+@pytest.mark.parametrize("log_n", [11, 12])
+def test_intt_folded_scale_matches_jax(log_n):
+    """Two passes at the default width, 1/n folded into the last one."""
+    eng = N.ntt_engine(log_n, "cpu")
+    assert eng.widths == N.pass_widths(log_n) and len(eng.widths) == 2
+    vals = rand_ints(300 + log_n, 1 << log_n)
+    want = digits_to_ints(G, NTTEngine(log_n).intt(jdig(vals)))
+    assert F.to_ints(eng.intt(P.dpoly(vals, "cpu"))) == want
+
+
+@pytest.mark.parametrize("log_n,pass_log,widths", [
+    (1, 10, [1]), (10, 10, [10]), (11, 10, [6, 5]), (20, 10, [10, 10]),
+    (21, 10, [7, 7, 7]), (7, 3, [3, 2, 2]), (12, 3, [3, 3, 3, 3])])
+def test_pass_widths(log_n, pass_log, widths):
+    assert N.pass_widths(log_n, pass_log) == widths
+
+
 def test_ntt_matches_pallas_butterfly_engine():
     """The JAX engine with its fused Pallas butterfly (interpret mode)."""
     log_n = 5
@@ -74,8 +109,8 @@ def test_ntt_matches_pallas_butterfly_engine():
 
 
 def test_plain_stage_is_one_butterfly_layer():
-    """One K2 stage (plain version) against the Pallas butterfly on the same
-    (l, r, twiddle) triples."""
+    """One K2 stage (plain pass of one stage) against the Pallas butterfly
+    on the same (l, r, twiddle) triples."""
     from aes_zero_knowledge_proof_circuit_tpu.ops.pallas_field import (
         pallas_butterfly,
     )
@@ -83,8 +118,9 @@ def test_plain_stage_is_one_butterfly_layer():
     n, half = 16, 4
     vals = rand_ints(8, n)
     tw = rand_ints(9, n // 2)
-    x = P.dpoly(vals, "cpu")
-    N.plain_stage(x, P.dpoly(tw, "cpu"), half)
+    # stage log2(half) = 2 alone: a pass of one stage at t0 = 2
+    x = N.plain_pass(P.dpoly(vals, "cpu"), P.dpoly(tw, "cpu"), 4, 2, 1,
+                     bitrev=False)
     stride = n // (2 * half)
     for g0 in range(0, n, 2 * half):
         lv = vals[g0:g0 + half]
