@@ -422,14 +422,15 @@ window_ladder(const uint32_t* __restrict__ window_sums, int windows, int c,
 // Launches the merge levels (merge_passes of them: 2^merge_passes must
 // reach the most partial sums of one bucket; merge_prefix [merge_passes,
 // W*B + 1] int64, row p the running count of level p's joins over the
-// buckets), bucket_reduce and window_ladder on `s` over
-// windows x buckets (buckets a power of two, divisible by 2^(slice_log +
-// block_log), 2^block_log <= MAX_BLOCK). Returns the first launch error (0
+// buckets) and bucket_reduce on `s` over windows x buckets (buckets a power
+// of two, divisible by 2^(slice_log + block_log), 2^block_log <=
+// MAX_BLOCK): steps 0-3, the window sums. Returns the first launch error (0
 // if none).
-int reduce_msm(void* partial, const void* merge_prefix, long long n_partial,
-               const void* first, int merge_passes, int windows, int buckets,
-               int c, int slice_log, int block_log, void* block_sums,
-               void* window_sums, void* counters, void* out, cudaStream_t s) {
+int reduce_windows(void* partial, const void* merge_prefix,
+                   long long n_partial, const void* first, int merge_passes,
+                   int windows, int buckets, int slice_log, int block_log,
+                   void* block_sums, void* window_sums, void* counters,
+                   cudaStream_t s) {
   const int threads = 128;
   const int n_buckets = windows * buckets;
   for (int p = 0; p < merge_passes && n_partial > 1; ++p) {
@@ -448,7 +449,17 @@ int reduce_msm(void* partial, const void* merge_prefix, long long n_partial,
       (const uint32_t*)partial, (const long long*)first, buckets, slice_log,
       block_log, (uint32_t*)block_sums, (uint32_t*)window_sums,
       (int*)counters);
-  int err = (int)cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+// reduce_windows, then window_ladder (window width c) into out: the MSM.
+int reduce_msm(void* partial, const void* merge_prefix, long long n_partial,
+               const void* first, int merge_passes, int windows, int buckets,
+               int c, int slice_log, int block_log, void* block_sums,
+               void* window_sums, void* counters, void* out, cudaStream_t s) {
+  int err = reduce_windows(partial, merge_prefix, n_partial, first,
+                           merge_passes, windows, buckets, slice_log,
+                           block_log, block_sums, window_sums, counters, s);
   if (err) return err;
   window_ladder<<<1, 32, 0, s>>>((const uint32_t*)window_sums, windows, c,
                                  (uint32_t*)out);

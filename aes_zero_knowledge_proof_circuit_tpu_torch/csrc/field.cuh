@@ -389,3 +389,109 @@ ZK_DEV void fq_mul(uint32_t* out, const uint32_t* a, const uint32_t* b) {
   }
   fq_sub_q(out, t);
 }
+
+// -- Inversion by the binary extended Euclidean algorithm -----------------
+//
+// R^3 mod q: fq_mul(x, ZK_FQ_R3) turns the plain inverse (a R)^-1 of a
+// Montgomery element into the Montgomery form a^-1 R.
+static __constant__ uint32_t ZK_FQ_R3[12] = {
+    0x8815de20u, 0x581f532fu, 0xbe329585u, 0xe50f4148u,
+    0x0449f513u, 0x2be8b118u, 0xc804a20eu, 0x6a2a9516u,
+    0x13590cb9u, 0x3f725407u, 0xc0e7dda5u, 0x01065ab4u};
+
+template <int L>
+ZK_DEV bool zk_is_one_raw(const uint32_t* x) {
+  uint32_t acc = x[0] ^ 1u;
+#pragma unroll
+  for (int j = 1; j < L; ++j) acc |= x[j];
+  return acc == 0;
+}
+
+// x = (x + top 2^(32 L)) / 2
+template <int L>
+ZK_DEV void zk_shr1(uint32_t* x, uint32_t top) {
+#pragma unroll
+  for (int j = 0; j < L - 1; ++j) x[j] = (x[j] >> 1) | (x[j + 1] << 31);
+  x[L - 1] = (x[L - 1] >> 1) | (top << 31);
+}
+
+// x / 2 mod p for x < p: x even ? x / 2 : (x + p) / 2
+template <class F>
+ZK_DEV void zk_halve(uint32_t* x) {
+  constexpr int L = F::L;
+  uint32_t top = 0;
+  if (x[0] & 1u) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      uint64_t s = (uint64_t)x[j] + F::p(j) + c;
+      x[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    top = (uint32_t)c;
+  }
+  zk_shr1<L>(x, top);
+}
+
+template <int L>
+ZK_DEV bool zk_geq(const uint32_t* x, const uint32_t* y) {
+#pragma unroll
+  for (int j = L - 1; j >= 0; --j) {
+    if (x[j] != y[j]) return x[j] > y[j];
+  }
+  return true;
+}
+
+// out = x - y for integers x >= y (no reduction)
+template <int L>
+ZK_DEV void zk_sub_raw(uint32_t* out, const uint32_t* x, const uint32_t* y) {
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    uint64_t v = (uint64_t)x[j] - y[j] - borrow;
+    out[j] = (uint32_t)v;
+    borrow = (v >> 32) & 1u;
+  }
+}
+
+// out = a^-1 mod p for a plain integer a < p (0 gives 0). u, v start at a
+// and p with x1 a = u and x2 a = v (mod p); each step halves an even u or v
+// (and its x mod p) or takes the smaller of u and v from the larger, until
+// one of them is 1: at most 2 log2(p) steps of shifts and subtractions on L
+// limbs, with no products. It is meant for one thread whose lone chain of
+// dependent operations sets the time, as the shared inversion of a batch
+// does: a Fermat chain there is log2(p) dependent Montgomery products.
+template <class F>
+ZK_DEV void zk_inv_binary(uint32_t* out, const uint32_t* a) {
+  constexpr int L = F::L;
+  uint32_t u[L], v[L], x1[L], x2[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    u[j] = a[j];
+    v[j] = F::p(j);
+    x1[j] = j == 0 ? 1u : 0u;
+    x2[j] = 0;
+  }
+  if (zk_is_zero<F>(u)) {
+    zk_store<L>(out, u);
+    return;
+  }
+  while (!zk_is_one_raw<L>(u) && !zk_is_one_raw<L>(v)) {
+    while (!(u[0] & 1u)) {
+      zk_shr1<L>(u, 0);
+      zk_halve<F>(x1);
+    }
+    while (!(v[0] & 1u)) {
+      zk_shr1<L>(v, 0);
+      zk_halve<F>(x2);
+    }
+    if (zk_geq<L>(u, v)) {
+      zk_sub_raw<L>(u, u, v);
+      zk_sub<F>(x1, x1, x2);
+    } else {
+      zk_sub_raw<L>(v, v, u);
+      zk_sub<F>(x2, x2, x1);
+    }
+  }
+  zk_store<L>(out, zk_is_one_raw<L>(u) ? x1 : x2);
+}

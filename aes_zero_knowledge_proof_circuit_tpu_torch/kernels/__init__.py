@@ -45,9 +45,9 @@ _SIGNATURES = {
     "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "zk_msm_g1": [_P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P, _P],
-    "zk_msm_u8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _I, _P,
-                  _P, _P, _P, _P, _P],
-    "zk_fq_cols_mul": [_P, _P, _P, _P, _LL, _P],
+    "zk_msm_u8": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                  _P, _P, _P, _P],
+    "zk_fq_cols_mul": [_P, _P, _P, _LL, _P],
 }
 
 

@@ -1,7 +1,9 @@
-"""MSM on the 8-bit bucket scan — counterpart of ops/msm_jax.py.
+"""MSM on 8-bit buckets — counterpart of ops/msm_jax.py.
 
 `msm_device` always runs the stages of ops/msm_pallas.py (kernel K4 on
-CUDA tensors), as the JAX `msm_device` reaches `msm_pallas` on a TPU. It
+CUDA tensors: batch-affine bucket sums), as the JAX `msm_device` reaches
+`msm_pallas` on a TPU. `lanes` is K4's chunk geometry (`msm_pallas.land`:
+the most threads one affine level runs on; None for the default). It
 commits the index (marlin/indexer.py) and, with `msm_engine="pallas"`, the
 prover's polynomials. The window ladder (8 doublings per window) runs in
 the kernel's reduction, so one XYZZ point comes back. The eager
@@ -41,7 +43,8 @@ def digit_limbs(scalars: torch.Tensor) -> torch.Tensor:
 def msm_device_point(points: torch.Tensor, digits16: torch.Tensor,
                      lanes: Optional[int] = None) -> torch.Tensor:
     """sum_i s_i P_i over device points and [n, 16] 16-bit digit limbs, as
-    one XYZZ point [4, 12] on the points' device."""
+    one XYZZ point [4, 12] on the points' device; `lanes` as
+    `msm_pallas.land` takes it."""
     if digits16.shape[0] == 0:
         return torch.zeros((4, 12), dtype=torch.int32, device=points.device)
     return msm_pallas.msm_parts(points, digits16, lanes)[0]

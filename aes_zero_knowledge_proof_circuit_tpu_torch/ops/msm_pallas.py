@@ -1,4 +1,4 @@
-"""The 8-bit bucket-scan MSM stages — counterpart of ops/msm_pallas.py.
+"""The 8-bit bucket MSM stages — counterpart of ops/msm_pallas.py.
 
     points   [N, 2, 12] int32: affine (x, y) in Montgomery Fq limbs
              (x = y = 0 marks infinity), from `points_from_packed`
@@ -8,28 +8,36 @@ Stages, as in the JAX module, for all 32 windows at once:
 
 1. `window_digits`: 32 unsigned 8-bit windows taken from the 16 limbs,
    least significant first (`_window_digits`).
-2. `land`: the per-window sort by digit and the column-major landing: lane
-   j of a window owns the contiguous sorted run [j*steps, (j+1)*steps),
-   across bucket boundaries, stored as [W, steps, lanes] so that the lanes
-   of one step lie side by side. n is padded to lanes*steps with zero digits
-   (never added). Here each lane scans STEPS pairs, so the lanes fill the
-   card; the TPU kernel uses 128 lanes.
-3. the bucket scan in lanes, kernel K4 (csrc/msm_u8.cu, wrapper
-   `scan_msm`): every lane closes each (lane, bucket) run with one
-   tail. Digit 0 is the dump: its pairs are never added and leave no tail.
-   The tails go to the slots `land` counted (`lane_base`), in (window,
-   digit) order, which takes the place of the scatter into per-lane bucket
-   tables.
-4. the lane merge: each bucket's tails summed with complete adds (tails of
-   one bucket from adjacent lanes can be equal or opposite points).
-5. the suffix fold sum_{j>=1} sum_{d>=j} B_d = sum_d d B_d per window
-   (`_suffix_fold`) and the window ladder, by K3's reduction
-   (csrc/curve.cuh): K4 returns the MSM as one XYZZ point on the device.
+2. `land`: the per-window sort by digit (torch glue, as the JAX module
+   sorts in XLA outside its kernel). The pairs of digit 0, the dump bucket,
+   are dropped and never added; `idx` keeps the point of every other pair in
+   (window, digit) order, bucket w * 256 + d - 1. Each bucket is summed by a
+   pairwise tree, and `first[l]` holds the offsets of every bucket's partial
+   sums at level l: a bucket of m points has ceil(m / 2^l) there.
+3. kernel K4 (csrc/msm_u8.cu, wrapper `scan_msm`): one launch of
+   batch-affine adds a tree level, in which partials 2j and 2j + 1 of a
+   bucket join (an odd last one is carried over) and each block shares one
+   inversion among its adds (Montgomery's trick); the last level writes
+   XYZZ. This takes the place of the TPU kernel's lane scan and its tails.
+4. K3's reduction (csrc/curve.cuh): the pairwise XYZZ merge of each bucket's
+   remaining partials, the suffix fold sum_{j>=1} sum_{d>=j} B_d = sum_d d
+   B_d per window (`_suffix_fold`) and the window ladder: K4 returns the MSM
+   as one XYZZ point on the device.
 
-`plain_scan_msm` is the plain version of stages 3-5, built from the curve
-formulas of ops/curve.py: each (lane, bucket) run and each bucket is summed
-by a pairwise tree instead of a sequential scan, then K3's plain reduction
-(`msm.plain_reduce`) runs.
+`lanes` is the chunk geometry of step 3: a level of A adds runs on at most
+`lanes` threads (LANES by default: one wave of one 512-thread block an SM
+on an H100), each with chunk = ceil(A / lanes) of them. Level
+0 always runs (it gathers the points); a later level runs while its chunk
+holds at least MIN_CHUNK adds and some bucket still has two partials, and
+then the XYZZ merge takes over. A small `lanes` runs every level down to one
+partial a bucket, which is how the CPU tests reach every branch.
+
+`plain_scan_msm` is the plain version: the same levels, each an affine add
+of every pair written out with the plain field functions and one batch
+inversion (`plain_batch_inv`) of the level's denominators (how the
+inversions are grouped changes no value: an affine sum is unique), then the
+pairwise tree of `curve.run_sums` over what is left of each bucket and K3's
+plain reduction (`msm.plain_reduce`).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -54,8 +63,11 @@ FQ = fq_ops()
 WINDOW_BITS = 8
 WINDOWS = 32             # 256-bit scalars: two 8-bit windows per 16-bit limb
 BUCKETS = 1 << WINDOW_BITS
-STEPS = 64               # sorted pairs one K4 thread scans: its lane's slice
-PLAIN_PAIRS = 1 << 23    # sorted pairs the plain version sums in one pass
+LEVEL_BLOCK = 512        # threads of a K4 level block (csrc/msm_u8.cu)
+LANES = 1 << 16          # most threads one affine level runs on
+MIN_CHUNK = 4            # fewest adds a thread for a level past the first
+PLAIN_ITEMS = 1 << 22    # adds the plain version computes at once
+KINDS = ("copy", "add", "dbl", "cancel")
 
 
 def window_digits(digits16: torch.Tensor) -> torch.Tensor:
@@ -71,59 +83,60 @@ def window_digits(digits16: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class Landing:
-    """One MSM's sorted pairs in the column-major landing, with the tail
-    bookkeeping the scan kernel needs."""
+    """One MSM's sorted pairs and the geometry of its tree levels."""
 
-    order: torch.Tensor       # [W, steps, lanes] int32 point index
-    digits: torch.Tensor      # [W, steps, lanes] uint8 sorted digit
+    idx: torch.Tensor         # [P] int32 point of each pair, (window, digit)
+    first: torch.Tensor       # [levels + 1, W*B + 1] int64 partial offsets
     lanes: int
-    steps: int
-    lane_base: torch.Tensor   # [W*lanes + 1] int64 first tail slot per lane
-    first: torch.Tensor       # [W*B + 1] int64 tails of bucket w*B + d - 1
-    n_tails: int
-    merge_passes: int         # merge levels for the most tails of a bucket
+    levels: int               # affine levels K4 runs
+    geometry: np.ndarray      # [levels, 3] int64 (adds, chunk, threads)
+    merge_passes: int         # XYZZ merge levels after the affine ones
     merge_prefix: torch.Tensor  # [merge_passes, W*B + 1] int64 (merge_plan)
 
 
-def _tail_mask(lane_digits: torch.Tensor) -> torch.Tensor:
-    """[W, lanes, steps] sorted digits -> the pairs that close a (lane,
-    bucket) run of a nonzero digit."""
-    last = torch.ones_like(lane_digits, dtype=torch.bool)
-    last[..., :-1] = lane_digits[..., 1:] != lane_digits[..., :-1]
-    return last & (lane_digits > 0)
+def level_geometry(items: int, lanes: int):
+    """(chunk, threads) of a level of `items` adds on at most `lanes`
+    threads: threads a multiple of LEVEL_BLOCK, threads * chunk >= items."""
+    chunk = -(-items // lanes)
+    blocks = -(-items // (chunk * LEVEL_BLOCK))
+    return chunk, blocks * LEVEL_BLOCK
 
 
 def land(digits16: torch.Tensor, lanes: Optional[int] = None) -> Landing:
-    """Window digits, the per-window sort and the column-major landing."""
+    """Window digits, the per-window sort and the tree levels' offsets."""
     n = digits16.shape[0]
-    lanes = lanes or max(1, -(-n // STEPS))
-    steps = max(1, -(-n // lanes))
+    lanes = lanes or LANES
+    if lanes < 1:
+        raise ValueError(f"lanes must be positive, got {lanes}")
     dev = digits16.device
-    dw = window_digits(digits16)
-    pad = lanes * steps - n
-    if pad:
-        dw = torch.cat([dw, torch.zeros((WINDOWS, pad), dtype=torch.uint8,
-                                        device=dev)], dim=1)
-    ds, order = torch.sort(dw, dim=1, stable=True)
-    # padding pairs carry digit 0 and are never read; keep their index valid
-    order = torch.where(order < n, order, 0).to(torch.int32)
-    lane_digits = ds.view(WINDOWS, lanes, steps)
-    tail = _tail_mask(lane_digits)
-    lane_base = torch.zeros(WINDOWS * lanes + 1, dtype=torch.int64,
-                            device=dev)
-    lane_base[1:] = torch.cumsum(tail.sum(-1).reshape(-1), 0)
-    win = torch.arange(WINDOWS, device=dev).view(WINDOWS, 1, 1)
-    tail_key = (win * BUCKETS + lane_digits.to(torch.int64) - 1)[tail]
-    counts = torch.bincount(tail_key, minlength=WINDOWS * BUCKETS)
-    first = torch.zeros(WINDOWS * BUCKETS + 1, dtype=torch.int64, device=dev)
-    first[1:] = torch.cumsum(counts, 0)
-    column_major = lambda t: t.view(WINDOWS, lanes, steps).transpose(
-        1, 2).contiguous()
-    passes = merge_passes(int(counts.max()))
-    return Landing(order=column_major(order), digits=column_major(ds),
-                   lanes=lanes, steps=steps, lane_base=lane_base, first=first,
-                   n_tails=int(lane_base[-1]), merge_passes=passes,
-                   merge_prefix=merge_plan(first, passes))
+    nb = WINDOWS * BUCKETS
+    ds, order = torch.sort(window_digits(digits16), dim=1, stable=True)
+    idx = order[ds > 0].to(torch.int32)
+    # where each nonzero digit's run starts in the sorted rows, then the
+    # run lengths: bucket w * B + d - 1 holds m[w, d - 1] pairs
+    digits = torch.arange(1, BUCKETS, dtype=torch.uint8, device=dev)
+    starts = torch.searchsorted(ds, digits.expand(WINDOWS, -1).contiguous())
+    m = torch.zeros((WINDOWS, BUCKETS), dtype=torch.int64, device=dev)
+    m[:, :-1] = torch.diff(starts, dim=1, append=torch.full(
+        (WINDOWS, 1), n, dtype=torch.int64, device=dev))
+    m = m.reshape(-1)
+    # partials of every bucket at each level, up to one a bucket (m <= n)
+    top_level = max(1, (n - 1).bit_length())
+    step = 2 ** torch.arange(top_level + 1, device=dev)[:, None]
+    per = (m[None] + step - 1) // step
+    tot, most = torch.stack([per.sum(1), per.max(1).values]).tolist()
+    levels = 1 if tot[0] else 0
+    while (levels < top_level and most[levels] > 1
+           and -(-tot[levels + 1] // lanes) >= MIN_CHUNK):
+        levels += 1
+    geometry = np.array([(tot[l + 1], *level_geometry(tot[l + 1], lanes))
+                         for l in range(levels)], np.int64).reshape(-1, 3)
+    first = torch.zeros((levels + 1, nb + 1), dtype=torch.int64, device=dev)
+    first[:, 1:] = torch.cumsum(per[:levels + 1], 1)
+    passes = merge_passes(most[levels])
+    return Landing(idx=idx, first=first, lanes=lanes, levels=levels,
+                   geometry=geometry, merge_passes=passes,
+                   merge_prefix=merge_plan(first[levels], passes))
 
 
 # -- K4 and its plain version ---------------------------------------------------
@@ -141,62 +154,108 @@ def scan_msm(points: torch.Tensor, plan: Landing):
         return plain_scan_msm(points, plan)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
-    for t, dt in ((plan.order, torch.int32), (plan.digits, torch.uint8),
-                  (plan.lane_base, torch.int64), (plan.first, torch.int64),
+    for t, dt in ((plan.idx, torch.int32), (plan.first, torch.int64),
                   (plan.merge_prefix, torch.int64)):
         if t.dtype != dt or t.device != points.device or not t.is_contiguous():
             raise ValueError(f"bad landing tensor {t.dtype} on {t.device}")
-    if int(plan.order.max()) >= points.shape[0]:
+    geo = plan.geometry
+    if geo.dtype != np.int64 or geo.shape != (plan.levels, 3) or \
+            not geo.flags.c_contiguous:
+        raise ValueError(f"bad level geometry {geo.shape} {geo.dtype}")
+    if plan.idx.numel() and int(plan.idx.max()) >= points.shape[0]:
         raise ValueError("point index out of range")
     points = points.contiguous()
     dev = points.device
+    items = geo[:, 0].tolist()
+
+    def rows(n: int, words: int) -> torch.Tensor:
+        return torch.empty((max(1, n), words, FQ.L), dtype=torch.int32,
+                           device=dev)
+
+    # levels 0, 2, ... write buf0 and 1, 3, ... buf1, the last `partial`
+    buf0 = rows(items[0] if plan.levels > 1 else 0, 2)
+    buf1 = rows(items[1] if plan.levels > 2 else 0, 2)
+    partial = rows(items[-1] if items else 0, 4)
     slice_log, block_log = reduce_geometry(BUCKETS)
-    tails = torch.empty((max(1, plan.n_tails), 4, FQ.L), dtype=torch.int32,
-                        device=dev)
     block_sums, wsums, counters, out = reduce_scratch(WINDOWS, BUCKETS, dev)
-    kernels.msm_u8(points.data_ptr(), plan.order.data_ptr(),
-                   plan.digits.data_ptr(), WINDOWS, plan.lanes, plan.steps,
-                   plan.lane_base.data_ptr(), plan.first.data_ptr(),
-                   plan.merge_prefix.data_ptr(), plan.n_tails,
-                   plan.merge_passes, slice_log, block_log, tails.data_ptr(),
+    kernels.msm_u8(points.data_ptr(), plan.idx.data_ptr(),
+                   plan.first.data_ptr(), WINDOWS, plan.levels,
+                   geo.ctypes.data, buf0.data_ptr(), buf1.data_ptr(),
+                   partial.data_ptr(), plan.merge_prefix.data_ptr(),
+                   plan.merge_passes, slice_log, block_log,
                    block_sums.data_ptr(), wsums.data_ptr(),
                    counters.data_ptr(), out.data_ptr())
     return out, wsums
 
 
-def plain_scan_msm(points: torch.Tensor, plan: Landing):
-    """Plain version of K4: the tails of every (lane, bucket) run, the
-    bucket totals over `plan.first`, and K3's plain reduction. The tails are
-    summed for a few windows at a time (at most PLAIN_PAIRS pairs), which
-    bounds the memory of the plain field products."""
+def _plain_level(src: torch.Tensor, idx: Optional[torch.Tensor],
+                 first_in: torch.Tensor, first_out: torch.Tensor,
+                 stats: Optional[dict]) -> torch.Tensor:
+    """One tree level of K4 on the plain field functions: [items, 2, 12]
+    affine partials from the level's inputs (src through idx at level 0)."""
+    dev = src.device
+    items = int(first_out[-1])
+    out = torch.empty((items, 2, FQ.L), dtype=torch.int32, device=dev)
+    one = FQ.const("one", dev)
+    for a in range(0, items, PLAIN_ITEMS):
+        v = torch.arange(a, min(items, a + PLAIN_ITEMS), device=dev)
+        b = torch.searchsorted(first_out, v, right=True) - 1
+        s = first_in[b] + 2 * (v - first_out[b])
+        pair = s + 1 < first_in[b + 1]
+        s2 = torch.where(pair, s + 1, s)
+        p1 = src[idx[s] if idx is not None else s]
+        p2 = src[idx[s2] if idx is not None else s2]
+        x1, y1, x2, y2 = p1[:, 0], p1[:, 1], p2[:, 0], p2[:, 1]
+        fin1 = ~(FQ.is_zero(x1) & FQ.is_zero(y1))
+        fin2 = pair & ~(FQ.is_zero(x2) & FQ.is_zero(y2))
+        dx = FQ.plain_sub(x2, x1)
+        same = fin1 & fin2 & FQ.is_zero(dx)
+        add = fin1 & fin2 & ~same
+        dbl = same & (y1 == y2).all(-1) & ~FQ.is_zero(y1)
+        cancel = same & ~dbl
+        sq = FQ.plain_mul(x1, x1)
+        den = FQ.select(add, dx, FQ.select(dbl, FQ.plain_add(y1, y1),
+                                           one.expand_as(x1)))
+        num = FQ.select(add, FQ.plain_sub(y2, y1),
+                        FQ.plain_add(FQ.plain_add(sq, sq), sq))
+        lam = FQ.plain_mul(num, FQ.plain_batch_inv(den))
+        x3 = FQ.plain_sub(FQ.plain_sub(FQ.plain_mul(lam, lam), x1), x2)
+        y3 = FQ.plain_sub(FQ.plain_mul(lam, FQ.plain_sub(x1, x3)), y1)
+        res = torch.where((pair & ~fin1)[:, None, None], p2, p1)
+        res = torch.where(cancel[:, None, None], 0, res)
+        out[a:a + v.shape[0]] = torch.where((add | dbl)[:, None, None],
+                                            torch.stack([x3, y3], 1), res)
+        if stats is not None:
+            for k, mask in zip(KINDS, (~(add | dbl | cancel), add, dbl,
+                                       cancel)):
+                stats[k] = stats.get(k, 0) + int(mask.sum())
+    return out
+
+
+def plain_scan_msm(points: torch.Tensor, plan: Landing,
+                   stats: Optional[dict] = None):
+    """Plain version of K4: the affine levels (`_plain_level`), each
+    bucket's remaining partials summed by `curve.run_sums`, and K3's plain
+    reduction. `stats`, if given, counts the levels' items by kind (copy,
+    add, dbl, cancel)."""
     dev = points.device
-    lane_major = lambda t: t.transpose(1, 2).reshape(WINDOWS, -1)
-    digits = lane_major(plan.digits)
-    order = lane_major(plan.order).to(torch.int64)
-    tail = _tail_mask(digits.view(WINDOWS, plan.lanes, plan.steps)).reshape(
-        WINDOWS, -1)
-    tails = curve.infinity(plan.n_tails, dev)
-    group = max(1, PLAIN_PAIRS // digits.shape[1])
-    for w0 in range(0, WINDOWS, group):
-        w1 = min(WINDOWS, w0 + group)
-        d, t = digits[w0:w1].reshape(-1), tail[w0:w1].reshape(-1)
-        lo = int(plan.lane_base[w0 * plan.lanes])
-        hi = int(plan.lane_base[w1 * plan.lanes])
-        # each pair's run ends at the next tail: its slot is the tails
-        # before it
-        slot = torch.cumsum(t.to(torch.int64), 0) - t.to(torch.int64)
-        pts = points[order[w0:w1].reshape(-1)]
-        x, y = pts[:, 0], pts[:, 1]
-        keep = (d > 0) & ~(FQ.is_zero(x) & FQ.is_zero(y))
-        one = FQ.const("one", dev).expand(int(keep.sum()), FQ.L)
-        part = curve.run_sums(slot[keep], (x[keep], y[keep], one), hi - lo,
-                              affine=True)
-        for a, b in zip(tails, part):
-            a[lo:hi] = b
-    counts = plan.first[1:] - plan.first[:-1]
-    bucket = torch.repeat_interleave(
-        torch.arange(WINDOWS * BUCKETS, device=dev), counts)
-    table = curve.run_sums(bucket, tails, WINDOWS * BUCKETS, affine=False)
+    nb = WINDOWS * BUCKETS
+    part = points
+    idx = plan.idx.to(torch.int64)
+    for lvl in range(plan.levels):
+        part = _plain_level(part, idx if lvl == 0 else None,
+                            plan.first[lvl], plan.first[lvl + 1], stats)
+    if plan.levels == 0:
+        table = curve.infinity(nb, dev)
+    else:
+        x, y = part[:, 0], part[:, 1]
+        inf = FQ.is_zero(x) & FQ.is_zero(y)
+        z = FQ.select(inf, torch.zeros_like(x), FQ.const("one", dev)
+                      .expand_as(x))
+        last = plan.first[plan.levels]
+        key = torch.repeat_interleave(torch.arange(nb, device=dev),
+                                      last[1:] - last[:-1])
+        table = curve.run_sums(key, (x, y, z), nb, affine=False)
     return plain_reduce(table, WINDOWS, BUCKETS, WINDOW_BITS)
 
 

@@ -10,20 +10,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    time and ptxas's registers and spills for every kernel;
 3. kernels: K1 (field mul/add/sub, pow and inv, batch_inv), K2 (NTT
    passes), K3 (signed-window MSM: bucket accumulation, reduction and
-   window ladder), K4 (8-bit bucket-scan MSM) and K5 (Fq digit-column
-   product) against their plain PyTorch versions on the card, bit-exact
-   (MSM points compared as affine points; batch_inv and inv at 2^20 rows
-   with zero rows at the ends, at a chunk boundary and over a whole chunk;
-   the NTT both ways at 2^1 ... 2^20 across every pass boundary), plus K3
-   and K4 against the native host Pippenger at 2^16; kernel times and
+   window ladder), K4 (8-bit bucket MSM: batch-affine tree levels, then the
+   shared reduction) and K5 (Fq digit-column product) against their plain
+   PyTorch versions on the card, bit-exact (MSM points compared as affine
+   points; batch_inv and inv at 2^20 rows with zero rows at the ends, at a
+   chunk boundary and over a whole chunk; the NTT both ways at 2^1 ... 2^20
+   across every pass boundary; K4 with equal, opposite and infinity points
+   in one bucket, printing the branches its levels took; K5 on band-edge
+   columns), plus K3 and K4 against the native host Pippenger at 2^16;
+   K4's Fq products and inversions on the timed inputs; kernel times and
    plain times at the main path's shapes, where the timed outputs of
    kernel and plain version are compared as well, each with the card's
    name and power limit and its bound (the larger of bytes over 3.35 TB/s
-   and 32-bit multiply-adds over 132 SMs x 64 a clock x 1.98 GHz). K1, K2
+   and 32-bit multiply-adds over 132 SMs x 64 a clock x 1.98 GHz; K4's
+   multiply-adds are its batch-affine Fq products on the timed inputs, with
+   the former lane scan's count printed beside them). K1, K2
    and K5 are timed by CUDA events over 20 calls after a warm-up, queued
    behind a device sleep so that the events time the card and not the
-   host's launches; the MSMs and the plain versions by the median of 3
-   synchronized wall-clock runs;
+   host's launches (K5 alone, as `ntt_mul` launches it after its checks,
+   and `ntt_mul` whole as the wrapper's time); the MSMs, K4's landing and
+   the plain versions by the median of 3 synchronized wall-clock runs;
 4. the ntt_mul path (K5's entry point) at 2^20 columns, with its launches
    and a sample of its columns checked against host integers;
 5. main path: synthesize_keys(16) on the card (the index committed on K4),
@@ -66,6 +72,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch import api, kernels
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import (
     to_msm_digits,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops import edge_inputs as EI
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_device as MD
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_ntt_mul as NM
@@ -299,16 +306,62 @@ def k3_imads(args) -> float:
     return products * FQ_PRODUCT
 
 
-def k4_imads(plan) -> float:
-    """The same count for K4: a mixed add for every pair of a nonzero
-    digit but the first of its (lane, bucket) run, a full add to merge each
-    further tail of a bucket, two a bucket for the running sums, and the
-    ladder's 8 x 31 doublings and 32 adds."""
-    pairs = int((plan.digits > 0).sum())
-    nonempty = int((plan.first[1:] > plan.first[:-1]).sum())
-    products = (10 * (pairs - plan.n_tails) + 14 * (plan.n_tails - nonempty)
+OLD_STEPS = 64     # sorted pairs a thread of K4's former lane scan
+
+
+def lane_scan_imads(d16) -> float:
+    """32-bit multiply-adds K4's former lane scan needed on these inputs:
+    the bound of K4's rows before its batch-affine design, printed beside
+    the present bound so that the rows still compare. On the lane scan's
+    geometry (lanes of OLD_STEPS sorted pairs), a mixed add (10 Fq
+    products) for every pair of a nonzero digit but the first of its (lane,
+    bucket) run, a full add to merge each further run of a bucket, two a
+    bucket for the running sums, and the ladder's 8 x 31 doublings and 32
+    adds."""
+    n = d16.shape[0]
+    lanes = -(-n // OLD_STEPS)
+    steps = -(-n // lanes)
+    ds = torch.sort(MP.window_digits(d16), dim=1).values
+    ds = torch.cat([torch.zeros((MP.WINDOWS, lanes * steps - n),
+                                dtype=ds.dtype, device=ds.device), ds], 1)
+    ds = ds.view(MP.WINDOWS, lanes, steps)
+    last = torch.ones_like(ds, dtype=torch.bool)
+    last[..., :-1] = ds[..., 1:] != ds[..., :-1]
+    runs = int((last & (ds > 0)).sum())
+    pairs = int((ds > 0).sum())
+    win = torch.arange(MP.WINDOWS, device=ds.device).view(MP.WINDOWS, 1, 1)
+    counts = torch.bincount((win * MP.BUCKETS + ds).reshape(-1),
+                            minlength=MP.WINDOWS * MP.BUCKETS)
+    nonempty = int((counts.view(MP.WINDOWS, MP.BUCKETS)[:, 1:] > 0).sum())
+    products = (10 * (pairs - runs) + 14 * (runs - nonempty)
                 + 2 * 14 * MP.WINDOWS * MP.BUCKETS + 9 * 8 * 31 + 14 * 32)
     return products * FQ_PRODUCT
+
+
+def k4_products(plan, kinds: dict):
+    """(Fq products, field inversions) of the batch-affine K4 on these
+    inputs; the products set K4's bound. 6 an affine add and 7 a doubling
+    (the plain version's count of the levels' items), each level's block
+    trees (B - 1 products up, 2 (B - 1) down and the Montgomery correction
+    of the one inversion, a block of B = LEVEL_BLOCK threads), 14 a join of
+    the XYZZ merge, the reduction's running sums, the 16 window pairs (8
+    doublings of 9 products and an add of 14 each) and the ladder over them
+    (15 x 16 doublings, 16 adds)."""
+    blocks = int(plan.geometry[:, 2].sum()) // MP.LEVEL_BLOCK
+    tree = 3 * (MP.LEVEL_BLOCK - 1) + 1
+    last = plan.first[plan.levels]
+    left = last[1:] - last[:-1]
+    joins = int((left - 1).clamp(min=0).sum())
+    pairs = MP.WINDOWS // 2
+    products = (6 * kinds.get("add", 0) + 7 * kinds.get("dbl", 0)
+                + tree * blocks + 14 * joins
+                + 2 * 14 * MP.WINDOWS * MP.BUCKETS + pairs * (9 * 8 + 14)
+                + 9 * 16 * (pairs - 1) + 14 * pairs)
+    return products, blocks
+
+
+def kinds_text(kinds: dict) -> str:
+    return ", ".join(f"{k} {kinds.get(k, 0)}" for k in MP.KINDS)
 
 
 def msm_bytes(n: int) -> float:
@@ -359,13 +412,16 @@ def check_msm(results: dict, srs_packed: np.ndarray, dev) -> None:
 
 def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
     """K4 (point and window sums) against its plain version at 2^10 points
-    and at edge shapes: n not a power of two, a long equal-digit run in the
-    low window, windows 8-31 all zero, few points; then msm_device at 2^16
-    against the native Pippenger."""
+    (the default chunk geometry, one add a thread, and lanes = 64, about 250
+    adds a thread over every tree level) with equal, opposite and infinity
+    points in one bucket, and at edge shapes: n not a power of two, a long
+    equal-digit run in the low window, windows 8-31 all zero, few points;
+    then msm_device at 2^16 against the native Pippenger."""
     f = fr_ops()
     rnd = random.Random(11)
     points = M.points_from_packed(srs_packed, dev)
     err = 0
+    kinds = {}
     for n, bound, lanes in ((1 << 10, f.modulus, None),
                             (1 << 10, f.modulus, 64), (1000, 1 << 64, None),
                             (3, f.modulus, None)):
@@ -373,13 +429,19 @@ def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
         sc[0] = 0
         for i in range(1, min(n, 300)):
             sc[i] = (sc[i] & ~0xFF) | 0x5A
+        pts = EI.k4_edge_points(points, n)
         plan = MP.land(MD.digit_limbs(f.from_ints(sc, dev, mont=False)), lanes)
-        e = xyzz_err(MP.scan_msm(points[:n], plan),
-                     MP.plain_scan_msm(points[:n], plan))
+        e = xyzz_err(MP.scan_msm(pts, plan),
+                     MP.plain_scan_msm(pts, plan, kinds))
         if e:
             raise AssertionError(f"K4 at {n} points (lanes {lanes}) disagrees "
                                  f"with plain")
         err = max(err, e)
+        say(f"[K4] {n} points, lanes {plan.lanes}: {plan.levels} affine "
+            f"levels (chunks {plan.geometry[:, 1].tolist()}), "
+            f"{plan.merge_passes} XYZZ merge levels; equal to plain")
+    if not all(kinds.get(k, 0) for k in MP.KINDS):
+        raise AssertionError(f"K4's inputs missed a branch: {kinds}")
     n = srs_packed.shape[0]
     scalars = f.from_ints([rnd.randrange(f.modulus) for _ in range(n)], dev,
                           mont=False)
@@ -392,53 +454,43 @@ def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
     if err:
         raise AssertionError(f"K4 at {n} points disagrees with native")
     results["msm_u8"]["max_abs_err"] = err
-    say(f"[K4] MSM at 2^10 (two lane counts), 1000 and 3 points vs plain; "
-        f"msm_device 2^{n.bit_length() - 1} vs native Pippenger (card "
-        f"{t1 - t0:.3f}s with landing and affine result, native "
-        f"{t2 - t1:.3f}s): equal points [{CARD}]")
-
-
-def fq_columns(n: int, gen) -> np.ndarray:
-    """[64, n] digit columns in ntt_mul's input band: random values below
-    2^376 in canonical digits, every fourth column with 63 added to its
-    digits 0-45 (redundant digits up to 318), and edge columns 0, 1, q - 1
-    and a value above q in band digits."""
-    cols = np.zeros((NM.PAD_IN, n), np.int32)
-    cols[:47] = gen.integers(0, 256, size=(47, n), dtype=np.int32)
-    cols[:46, ::4] += 63
-    edges = NM.ints_to_cols([0, 1, NM.Q_MOD - 1, 2**376], mont=False)
-    q = NM.ints_to_cols([NM.Q_MOD - 1], mont=False)[:, 0]
-    edges[:, 3] += q                       # 2^376 + q - 1, digits <= 510
-    carry = edges[:, 3] >> 8
-    edges[:, 3] = (edges[:, 3] & 255) + np.concatenate([[0], carry[:-1]])
-    cols[:, :4] = edges
-    return cols
+    say(f"[K4] MSM at 2^10 (two chunk geometries), 1000 and 3 points vs "
+        f"plain, level items reached: {kinds_text(kinds)}; msm_device "
+        f"2^{n.bit_length() - 1} vs native Pippenger (card {t1 - t0:.3f}s "
+        f"with landing and affine result, native {t2 - t1:.3f}s): equal "
+        f"points [{CARD}]")
 
 
 def check_fq_cols(results: dict, gen, dev) -> None:
     """K5 against its plain version at 2^20 columns, timed, and on a sample
     of columns against host integers."""
     n = 1 << 20
-    a = torch.from_numpy(fq_columns(n, gen)).to(dev)
+    a = torch.from_numpy(EI.fq_columns(n, gen)).to(dev)
     # columns permuted so that the edge columns meet random ones; made
     # contiguous, or the wrapper's copy of a strided input would be timed
     b = torch.from_numpy(np.ascontiguousarray(
-        fq_columns(n, gen)[:, gen.permutation(n)])).to(dev)
-    k, got = events_ms(lambda: NM.ntt_mul(a, b))
+        EI.fq_columns(n, gen)[:, gen.permutation(n)])).to(dev)
+    out = torch.empty_like(a)
+    k, _ = events_ms(lambda: NM._launch(a, b, out))
+    w, got = events_ms(lambda: NM.ntt_mul(a, b))
+    if not torch.equal(out, got):
+        raise AssertionError("K5 alone and ntt_mul disagree")
     p, want = timed(lambda: NM.plain_ntt_mul(a, b))
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"K5 at 2^20 columns: err {err}")
     check_fq_sample(a, b, got)
     results["fq_cols"].update(max_abs_err=err, ms=k, plain_ms=p)
-    # 51 digit rows of each input read, 64 rows written; six Fq products a
-    # column (two to enter Montgomery form per input, the product, the
-    # radix correction)
+    # 51 digit rows of each input read, 64 rows written; a column's
+    # multiply-adds: one Fq product and 36 word products (each operand's
+    # reduction by k q, 12 words each, and the 2^-16 step's m q)
     set_bound(results["fq_cols"], (2 * 51 + NM.PAD_IN) * 4 * n,
-              6 * n * FQ_PRODUCT)
-    say(f"[K5] ntt_mul 2^20 columns: kernel {k:.4f} ms (events), plain "
+              (FQ_PRODUCT + 2 * 36) * n)
+    say(f"[K5] ntt_mul 2^20 columns: kernel {k:.4f} ms (events, the kernel "
+        f"alone), wrapper ms {w:.4f} (ntt_mul with its checks), plain "
         f"{p:.3f} ms, "
-        f"bound {results['fq_cols']['bound_ms']:.4f} ms; bit-exact "
+        f"bound {results['fq_cols']['bound_ms']:.4f} ms "
+        f"({results['fq_cols']['bound_by']}); bit-exact "
         f"(canonical digits), sampled columns equal host ints [{CARD}]")
 
 
@@ -454,8 +506,8 @@ def check_fq_sample(a, b, out, m: int = 2048) -> None:
 
 def phase_ntt_mul(results: dict, gen, dev) -> None:
     """K5's own path: ntt_mul at 2^20 columns, counted."""
-    a = torch.from_numpy(fq_columns(1 << 20, gen)).to(dev)
-    b = torch.from_numpy(fq_columns(1 << 20, gen)).to(dev)
+    a = torch.from_numpy(EI.fq_columns(1 << 20, gen)).to(dev)
+    b = torch.from_numpy(EI.fq_columns(1 << 20, gen)).to(dev)
     kernels.reset_counts()
     out = NM.ntt_mul(a, b)
     torch.cuda.synchronize()
@@ -553,7 +605,9 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
         d16 = MD.digit_limbs(scalars)
         t_land, plan = timed(lambda: MP.land(d16))
         k, got = timed(lambda: MP.scan_msm(points, plan))
-        p, want = timed(lambda: MP.plain_scan_msm(points, plan), reps=1)
+        kinds = {}
+        p, want = timed(lambda: MP.plain_scan_msm(points, plan, kinds),
+                        reps=1)
         err = xyzz_err(got, want)
         if err:
             raise AssertionError(f"K4 at 2^{log_n} points disagrees with "
@@ -564,13 +618,25 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
             raise AssertionError(f"msm_device at 2^{log_n} points disagrees "
                                  f"with msm")
         results["msm_u8"].update(ms=k, plain_ms=p)
-        set_bound(results["msm_u8"], msm_bytes(n), k4_imads(plan))
-        say(f"[time] 8-bit MSM 2^{log_n} ({plan.lanes} lanes of "
-            f"{plan.steps}, {plan.n_tails} tails): K4 {k:.3f} ms, bound "
-            f"{results['msm_u8']['bound_ms']:.3f} ms, plain {p:.3f} ms (one "
-            f"run), landing {t_land:.3f} ms, whole msm_device() "
-            f"{total:.3f} ms; equal points and window sums, MSM equal to "
-            f"K3's [{CARD}]")
+        products, inversions = k4_products(plan, kinds)
+        set_bound(results["msm_u8"], msm_bytes(n), products * FQ_PRODUCT)
+        lane_scan = {}
+        set_bound(lane_scan, msm_bytes(n), lane_scan_imads(d16))
+        adds = int(plan.idx.numel()) - int(
+            (plan.first[0][1:] > plan.first[0][:-1]).sum())
+        say(f"[time] 8-bit MSM 2^{log_n} ({plan.levels} affine levels, "
+            f"chunks {plan.geometry[:, 1].tolist()}, threads "
+            f"{plan.geometry[:, 2].tolist()}, {plan.merge_passes} XYZZ "
+            f"merge levels): K4 {k:.3f} ms, bound "
+            f"{results['msm_u8']['bound_ms']:.3f} ms "
+            f"({results['msm_u8']['bound_by']}, its Fq products; the former "
+            f"lane scan's count {lane_scan['bound_ms']:.3f} ms), plain "
+            f"{p:.3f} ms (one run), land {t_land:.3f} ms, "
+            f"whole msm_device() {total:.3f} ms; equal points and window "
+            f"sums, MSM equal to K3's [{CARD}]")
+        say(f"[time] 8-bit MSM 2^{log_n} work: {adds} bucket adds; Fq "
+            f"products {products} ({products / max(1, adds):.3f} an add), "
+            f"{inversions} inversions; level items {kinds_text(kinds)}")
 
 
 MAIN_PATH = ("fr_ops", "ntt", "msm", "msm_u8")

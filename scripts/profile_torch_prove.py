@@ -49,7 +49,7 @@ GROUPS = (
     ("K3/K4 segment_merge", ("segment_merge",)),
     ("K3/K4 bucket_reduce", ("bucket_reduce",)),
     ("K3/K4 window_ladder", ("window_ladder",)),
-    ("K4 lane_scan", ("lane_scan",)),
+    ("K4 affine_level, window_pairs", ("affine_level", "window_pairs")),
     ("torch scan (cumsum)", ("scan",)),
     ("torch sort", ("Sort", "sort")),
     ("copies", ("Memcpy", "Memset")),

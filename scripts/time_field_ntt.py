@@ -1,5 +1,5 @@
-"""Time K1 (field products, batch inversion) and K2 (the NTT) of a tree on a
-CUDA card.
+"""Time K1 (field products, batch inversion), K2 (the NTT) and K5 (the Fq
+digit-column product) of a tree on a CUDA card.
 
     python3 scripts/time_field_ntt.py
 
@@ -15,7 +15,12 @@ with the launches of one call beside it. Inputs are uniform reduced
 elements from a seeded numpy generator, with zero rows at 0, 1000, 1001 and
 the last row. Each result is checked cheaply on the card: a * a^-1
 is 1 on every nonzero row and zero rows stay zero; the NTT round trip gives
-the input back. The card's name and power limit come first.
+the input back. K5 runs at 2^20 columns of random digits, every fourth
+column in band digits up to 318: the kernel alone (the launch `ntt_mul`
+makes after its checks; a tree from before `_launch` existed takes the same
+launch by hand) and `ntt_mul` whole, whose outputs must agree, and a sample
+of columns against host integers. The card's name and power limit come
+first.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from aes_zero_knowledge_proof_circuit_tpu_torch import kernels  # noqa: E402
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops import (  # noqa: E402
+    msm_ntt_mul as NM,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import (  # noqa: E402
     fq_ops,
     fr_ops,
@@ -79,6 +87,40 @@ def check_inverse(f, a, inv) -> None:
         raise AssertionError(f"batch_inv L={f.L} is not an inverse")
 
 
+def fq_columns(n: int, seed: int) -> np.ndarray:
+    gen = np.random.default_rng(seed)
+    cols = np.zeros((NM.PAD_IN, n), np.int32)
+    cols[:47] = gen.integers(0, 256, size=(47, n), dtype=np.int32)
+    cols[:46, ::4] += 63
+    return cols
+
+
+def time_k5(dev) -> None:
+    n = 1 << 20
+    a = torch.from_numpy(fq_columns(n, 4)).to(dev)
+    b = torch.from_numpy(fq_columns(n, 5)).to(dev)
+    out = torch.empty_like(a)
+    if hasattr(NM, "_launch"):
+        alone = lambda: NM._launch(a, b, out)
+    else:
+        consts = NM._kernel_consts(str(dev))
+        alone = lambda: kernels.fq_cols_mul(a.data_ptr(), b.data_ptr(),
+                                            consts.data_ptr(), out.data_ptr(),
+                                            n)
+    ms, launches, _ = events_ms(alone)
+    print(f"K5 alone 2^20 columns: {ms:.4f} ms, launches {launches}",
+          flush=True)
+    ms, launches, got = events_ms(lambda: NM.ntt_mul(a, b))
+    print(f"K5 ntt_mul (wrapper) 2^20 columns: {ms:.4f} ms, launches "
+          f"{launches}", flush=True)
+    if not torch.equal(got, out):
+        raise AssertionError("K5 alone and ntt_mul disagree")
+    m = 2048
+    va, vb, vo = (NM.cols_to_ints(t[:, :m]) for t in (a, b, got))
+    if vo != [x * y % NM.Q_MOD for x, y in zip(va, vb)]:
+        raise AssertionError("K5 disagrees with host integers")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("time_field_ntt: no CUDA device")
@@ -114,6 +156,7 @@ def main() -> int:
         if not torch.equal(back, x):
             raise AssertionError(f"NTT 2^{log_n} round trip failed")
         print(f"iNTT 2^{log_n}: {ms:.4f} ms, launches {launches}", flush=True)
+    time_k5(dev)
     return 0
 
 

@@ -131,9 +131,14 @@ def test_k3_matches_native(cuda):
 
 
 def test_k4_matches_plain(cuda):
-    """K4's point and window sums at a power of two and at n = 1000 with a
-    long equal-digit run and scalars below 2^64 (windows 8-31 all zero),
+    """K4's point and window sums at a power of two (the default chunk
+    geometry and lanes = 64, many adds a thread over every tree level) with
+    equal, opposite and infinity points in one bucket, and at n = 1000 with
+    a long equal-digit run and scalars below 2^64 (windows 8-31 all zero);
     then the MSM against the native Pippenger."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import (
+        edge_inputs as EI,
+    )
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_device as MD
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_pallas as MP
@@ -149,26 +154,36 @@ def test_k4_matches_plain(cuda):
     srs = generate_srs_native(1023, random.Random(4))
     pts = M.points_from_packed(srs.powers_g1.packed, cuda)
     rnd = random.Random(6)
+    kinds = {}
     for n, bound, lanes in ((1024, R_MOD, None), (1024, R_MOD, 64),
                             (1000, 1 << 64, None)):
         sc = [rnd.randrange(bound) for _ in range(n)]
         sc[0] = 0
         for i in range(1, 300):
             sc[i] = (sc[i] & ~0xFF) | 0x5A
+        edge = EI.k4_edge_points(pts, n)
         plan = MP.land(MD.digit_limbs(fr_ops().from_ints(sc, cuda,
                                                          mont=False)), lanes)
-        got = MP.scan_msm(pts[:n], plan)
-        want = MP.plain_scan_msm(pts[:n], plan)
+        got = MP.scan_msm(edge, plan)
+        want = MP.plain_scan_msm(edge, plan, kinds)
         for g, w in zip(got, want):
             assert M.xyzz_to_affine(g) == M.xyzz_to_affine(w)
+    assert all(kinds[k] > 0 for k in MP.KINDS)
     scalars = fr_ops().from_ints(sc, cuda, mont=False)
     assert MD.msm_device(pts, MD.digit_limbs(scalars)) == M.native_msm(
         srs.powers_g1.packed, scalars)
 
 
 def test_k5_matches_plain(cuda):
+    """K5 against its plain version and host integers on random values, on
+    band-edge columns (digits up to 318, 0, 1, q - 1 and a value above q,
+    as edge_inputs.fq_columns makes them), and at a column count that is not
+    a multiple of four (ntt_mul pads it with zero columns)."""
     import random
 
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import (
+        edge_inputs as EI,
+    )
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import Q_MOD
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_ntt_mul as NM
 
@@ -177,6 +192,14 @@ def test_k5_matches_plain(cuda):
     vb = [r.randrange(Q_MOD) for _ in range(4096)]
     a = torch.from_numpy(NM.ints_to_cols(va)).to(cuda)
     b = torch.from_numpy(NM.ints_to_cols(vb)).to(cuda)
-    got = NM.ntt_mul(a, b)
-    assert torch.equal(got, NM.plain_ntt_mul(a, b))
-    assert NM.cols_to_ints(got) == [x * y % Q_MOD for x, y in zip(va, vb)]
+    gen = np.random.default_rng(9)
+    edge_a = torch.from_numpy(EI.fq_columns(4096, gen)).to(cuda)
+    edge_b = torch.from_numpy(np.ascontiguousarray(
+        EI.fq_columns(4096, gen)[:, ::-1])).to(cuda)
+    for x, y in ((a, b), (edge_a, edge_b), (edge_a, a),
+                 (edge_a[:, :4093], edge_b[:, 3:])):
+        got = NM.ntt_mul(x, y)
+        assert torch.equal(got, NM.plain_ntt_mul(x, y))
+        assert NM.cols_to_ints(got) == [
+            u * v % Q_MOD for u, v in zip(NM.cols_to_ints(x),
+                                          NM.cols_to_ints(y))]

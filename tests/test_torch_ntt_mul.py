@@ -90,6 +90,26 @@ def test_ntt_mul_fold_band_inputs_match_jax():
     assert got == ref == want
 
 
+def test_edge_columns_match_jax_and_host():
+    """edge_inputs.fq_columns (the card checks' band-edge columns): digits
+    in the band, redundant ones up to 318, the edge values 0, 1, q - 1 and
+    one above q; their products equal the JAX module's and the host's."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import edge_inputs
+
+    gen = np.random.default_rng(3)
+    a = edge_inputs.fq_columns(16, gen)
+    b = np.ascontiguousarray(edge_inputs.fq_columns(16, gen)[:, ::-1])
+    assert a.min() >= 0 and a.max() <= 318 and not a[NM.ROWS_READ:].any()
+    assert (a[:46, 4::4] >= 63).all()          # redundant digits
+    raw = [sum(int(d) << (8 * j) for j, d in enumerate(a[:, c]))
+           for c in range(4)]
+    assert raw == [0, 1, Q_MOD - 1, 2**376 + Q_MOD - 1]
+    _port, got, ref = both(a, b, blk=16)
+    want = [x * y % Q_MOD for x, y in zip(NM.cols_to_ints(a),
+                                          NM.cols_to_ints(b))]
+    assert got == ref == want
+
+
 def test_ntt_mul_rejects_digits_outside_the_band():
     a = torch.from_numpy(NM.ints_to_cols([5, 7]))
     bad = a.clone()
