@@ -1,9 +1,11 @@
 """Prove and verify AES-128 encryption — counterpart of the JAX package's api.
 
-    synthesize_keys(plaintext_length, device=...) -> (AESProvingKey, vk)
-    encrypt(message, secret_key, proving_key) -> MarlinProof
-    verify_encryption(verifying_key, proof, ciphertext) -> bool
-    compute_ciphertext(message, secret_key) -> bytes
+    synthesize_keys(plaintext_length, mode=..., device=...)
+        -> (AESProvingKey, vk)
+    encrypt(message, secret_key, proving_key, iv=...) -> MarlinProof
+    encrypt_batch(messages, secret_key, proving_key) -> [MarlinProof]
+    verify_encryption(verifying_key, proof, ciphertext, iv=...) -> bool
+    compute_ciphertext(message, secret_key, iv=...) -> bytes
 
 The proving state lives on the CUDA card unless `synthesize_keys` is given
 another device; without a card it raises. The host code (circuit, KZG
@@ -12,8 +14,9 @@ the JAX package's, so proofs and verifying keys have the same bytes in both
 packages and a proof from either verifies with the other's verifier.
 Templates and indexed keys are cached under names of this package's own
 (`tpl_torch_*`, `pk_torch_*`), since their pickles name this package's
-classes; SRS checkpoints are plain arrays and shared. ECB only: CBC,
-`encrypt_batch` and multi-device meshes raise NotPortedError.
+classes; SRS checkpoints are plain arrays and shared. Both modes are
+ported: ECB, and CBC with a public 16-byte iv. Multi-device meshes
+(`mesh=`) raise NotPortedError.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import hashlib
 import logging
 import os
 import pickle
+import random
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +39,7 @@ from .marlin.indexer import MarlinProvingKey, MarlinVerifyingKey
 from .marlin.prover import MarlinProof, TorchProver
 from .models.aes_circuit import Template, build_template
 from .ops import kzg
-from .ops.aes_host import encrypt_ecb
+from .ops.aes_host import encrypt_cbc, encrypt_ecb
 from .ops.field_params import R_MOD
 from .ops.witness import WitnessEvaluator
 from .utils import srs as _srs
@@ -88,18 +92,26 @@ def bits_lsb_first(data: bytes) -> List[int]:
     return [(byte >> i) & 1 for byte in data for i in range(8)]
 
 
-def _template_cached(msg_len: int) -> Template:
-    path = CONFIG.template_dir / f"tpl_torch_ecb_{msg_len}_v{TEMPLATE_VERSION}.pkl"
+def _template_cached(msg_len: int, mode: str = "ecb") -> Template:
+    path = CONFIG.template_dir / (
+        f"tpl_torch_{mode}_{msg_len}_v{TEMPLATE_VERSION}.pkl")
     if path.exists():
         with open(path, "rb") as f:
             return pickle.load(f)
-    log.info("building AES-ecb circuit template for %d bytes", msg_len)
-    tpl = build_template(msg_len, mode="ecb")
+    log.info("building AES-%s circuit template for %d bytes", mode, msg_len)
+    tpl = build_template(msg_len, mode=mode)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(tpl, f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
     return tpl
+
+
+def _srs_degree(tpl: Template) -> int:
+    """The SRS degree a template's key needs."""
+    na, nb, nc = tpl.r1cs.nnz()
+    return _indexer.required_degree(tpl.r1cs.num_constraints,
+                                    tpl.r1cs.num_variables, max(na, nb, nc))
 
 
 def _srs_for(need: int, rng) -> kzg.SRS:
@@ -140,15 +152,20 @@ def _srs_digest(srs: kzg.SRS) -> str:
     return h.hexdigest()
 
 
-def _indexed_pk_cached(msg_len: int, tpl: Template, srs: kzg.SRS, device,
-                       use_disk_cache: bool) -> MarlinProvingKey:
+def _pk_path(msg_len: int, mode: str, srs: kzg.SRS):
+    """Where the indexed key of one template and SRS is checkpointed."""
+    return CONFIG.template_dir / (
+        f"pk_torch_{mode}_{msg_len}_v{TEMPLATE_VERSION}_srs{srs.max_degree}"
+        f"_{_srs_digest(srs)}_ix{INDEX_VERSION}.pkl")
+
+
+def _indexed_pk_cached(msg_len: int, mode: str, tpl: Template, srs: kzg.SRS,
+                       device, use_disk_cache: bool) -> MarlinProvingKey:
     """The port's indexer with a disk checkpoint of everything but the SRS,
     under its own name prefix (pk_torch_)."""
     if not use_disk_cache:
         return _indexer.index(tpl.r1cs, srs, device)
-    path = CONFIG.template_dir / (
-        f"pk_torch_ecb_{msg_len}_v{TEMPLATE_VERSION}_srs{srs.max_degree}"
-        f"_{_srs_digest(srs)}_ix{INDEX_VERSION}.pkl")
+    path = _pk_path(msg_len, mode, srs)
     if path.exists():
         log.info("loading indexed proving key %s", path)
         with open(path, "rb") as f:
@@ -171,35 +188,36 @@ def _indexed_pk_cached(msg_len: int, tpl: Template, srs: kzg.SRS, device,
     return pk
 
 
-def synthesize_keys(plaintext_length: int, rng=None,
-                    srs: Optional[kzg.SRS] = None, mode: str = "ecb", *,
+def synthesize_keys(plaintext_length: int, rng=None, *,
+                    srs: Optional[kzg.SRS] = None, mode: str = "ecb",
                     device="cuda") -> Tuple[AESProvingKey, MarlinVerifyingKey]:
     """Trusted setup and circuit indexing, with the proving state on
     `device` (the CUDA card by default). The SRS is sized from the template,
-    generated once by the native tier and checkpointed."""
+    generated once by the native tier and checkpointed. mode="cbc" chains
+    the blocks on a public 16-byte iv.
+
+    Everything after `rng` is keyword-only: the JAX package's third
+    positional parameter is its backend, so a call written for it fails
+    here at the call."""
     require(plaintext_length > 0 and plaintext_length % 16 == 0,
             InvalidInputError,
             f"plaintext_length must be a positive multiple of 16, got "
             f"{plaintext_length}")
-    if mode != "ecb":
-        raise NotPortedError(f"mode={mode!r}: only ECB is ported")
+    require(mode in ("ecb", "cbc"), InvalidInputError,
+            f"mode must be 'ecb' or 'cbc', got {mode!r}")
     device = resolve_device(device)
     rng = rng or generate_rand()
     times = {}
     t0 = time.perf_counter()
-    tpl = _template_cached(plaintext_length)
+    tpl = _template_cached(plaintext_length, mode)
     times["template"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     caller_srs = srs is not None
     if srs is None:
-        na, nb, nc = tpl.r1cs.nnz()
-        need = _indexer.required_degree(tpl.r1cs.num_constraints,
-                                        tpl.r1cs.num_variables,
-                                        max(na, nb, nc))
-        srs = _srs_for(need, rng)
+        srs = _srs_for(_srs_degree(tpl), rng)
     times["srs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pk = _indexed_pk_cached(plaintext_length, tpl, srs, device,
+    pk = _indexed_pk_cached(plaintext_length, mode, tpl, srs, device,
                             use_disk_cache=not caller_srs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -208,57 +226,116 @@ def synthesize_keys(plaintext_length: int, rng=None,
                          setup_times=times), pk.vk
 
 
+def _check_inputs(tpl: Template, messages: Sequence[bytes],
+                  secret_key: bytes, iv: Optional[bytes]) -> None:
+    """The JAX package's checks of what a proof is asked for, in its order."""
+    for m in messages:
+        require(len(m) == tpl.msg_len, InvalidInputError,
+                f"message is {len(m)} bytes; the proving key was "
+                f"synthesized for {tpl.msg_len}")
+    require(len(secret_key) == 16, InvalidInputError,
+            "secret_key must be exactly 16 bytes (AES-128)")
+    if tpl.mode == "cbc":
+        require(iv is not None and len(iv) == 16, InvalidInputError,
+                "CBC proving keys require a 16-byte iv")
+    else:
+        require(iv is None, InvalidInputError,
+                "iv given but the proving key is for ECB mode")
+
+
+def _witness_bits(tpl: Template, messages: Sequence[bytes], key: bytes,
+                  iv: Optional[bytes] = None) -> Dict[str, np.ndarray]:
+    """The witness fill's inputs for a batch of messages under one key:
+    source name -> [B, bits] LSB-first bits; CBC templates add the iv."""
+    def rows(datas) -> np.ndarray:
+        return np.asarray([bits_lsb_first(d) for d in datas], np.int32)
+
+    inputs = {"message": rows(messages), "key": rows([key] * len(messages))}
+    if tpl.mode == "cbc":
+        inputs["iv"] = rows([iv] * len(messages))
+    return inputs
+
+
+def _proving_state(proving_key: AESProvingKey):
+    """The key's witness evaluator and prover, made on first use."""
+    if proving_key._witness is None:
+        proving_key._witness = WitnessEvaluator(proving_key.template.plan,
+                                                proving_key.device)
+    if proving_key._prover is None:
+        proving_key._prover = TorchProver(proving_key.marlin_pk,
+                                          proving_key.device)
+    return proving_key._witness, proving_key._prover
+
+
+def _prove_z(prover: TorchProver, tpl: Template, z: torch.Tensor, rng,
+             zk: bool) -> MarlinProof:
+    """Prove one filled witness z: the instance is [1] + z[1:num_instance]
+    (the iv bits, for CBC, then the ciphertext bits)."""
+    num_instance = tpl.r1cs.num_instance
+    instance = [1] + z[1:num_instance].tolist()
+    return prover.prove(instance, z[num_instance:], rng=rng, zk=zk)
+
+
 def encrypt(message: bytes, secret_key: bytes, proving_key: AESProvingKey,
             rng=None, zk: bool = True, iv: Optional[bytes] = None,
             mesh=None) -> MarlinProof:
-    """Prove knowledge of (message, key) for the AES-128 ECB ciphertext."""
-    if iv is not None:
-        raise NotPortedError("CBC proving is not ported")
+    """Prove knowledge of (message, key) for the AES-128 ciphertext; CBC
+    proving keys take the public 16-byte iv."""
     if mesh is not None:
         raise NotPortedError("multi-device proving is not ported")
     rng = rng or generate_rand()
     tpl = proving_key.template
-    require(len(message) == tpl.msg_len, InvalidInputError,
-            f"message is {len(message)} bytes; the proving key was "
-            f"synthesized for {tpl.msg_len}")
-    require(len(secret_key) == 16, InvalidInputError,
-            "secret_key must be exactly 16 bytes (AES-128)")
-    if proving_key._witness is None:
-        proving_key._witness = WitnessEvaluator(tpl.plan, proving_key.device)
-    if proving_key._prover is None:
-        proving_key._prover = TorchProver(proving_key.marlin_pk,
-                                          proving_key.device)
-    z = proving_key._witness.evaluate({
-        "message": np.asarray(bits_lsb_first(message), np.int32),
-        "key": np.asarray(bits_lsb_first(secret_key), np.int32)})
-    num_instance = tpl.r1cs.num_instance
-    instance = [1] + [int(v) for v in z[1:num_instance].tolist()]
-    return proving_key._prover.prove(instance, z[num_instance:], rng=rng,
-                                     zk=zk)
+    _check_inputs(tpl, [message], secret_key, iv)
+    evaluator, prover = _proving_state(proving_key)
+    z = evaluator.evaluate_batch(_witness_bits(tpl, [message], secret_key,
+                                               iv))[0]
+    return _prove_z(prover, tpl, z, rng, zk)
 
 
-def encrypt_batch(messages, secret_key, proving_key, rng=None, zk=True,
-                  mesh=None):
-    raise NotPortedError("encrypt_batch is not ported")
+def encrypt_batch(messages: List[bytes], secret_key: bytes,
+                  proving_key: AESProvingKey, rng=None, zk: bool = True,
+                  mesh=None) -> List[MarlinProof]:
+    """Prove independent messages under one key with an ECB proving key.
+    The witnesses are filled together in one batch; the proofs follow one
+    after another on the key's device, proof i from random.Random(seed i)
+    with the seeds drawn from `rng` first, as the JAX package draws them,
+    so a seeded batch gives its proofs."""
+    if mesh is not None:
+        raise NotPortedError("multi-device batches are not ported")
+    require(len(messages) > 0, InvalidInputError, "empty message batch")
+    tpl = proving_key.template
+    require(tpl.mode == "ecb", InvalidInputError,
+            "encrypt_batch supports ECB proving keys (CBC chains blocks)")
+    _check_inputs(tpl, messages, secret_key, None)
+    rng = rng or generate_rand()
+    evaluator, prover = _proving_state(proving_key)
+    zs = evaluator.evaluate_batch(_witness_bits(tpl, messages, secret_key))
+    seeds = [rng.randrange(1 << 62) for _ in messages]
+    return [_prove_z(prover, tpl, z, random.Random(seed), zk)
+            for z, seed in zip(zs, seeds)]
 
 
 def compute_ciphertext(message: bytes, secret_key: bytes,
                        iv: Optional[bytes] = None) -> bytes:
-    """AES-128 ECB on the host (the oracle the proof is checked against)."""
+    """AES-128 ECB, or CBC when an iv is given, on the host (the oracle the
+    proof is checked against)."""
     if iv is not None:
-        raise NotPortedError("CBC is not ported")
+        return bytes(encrypt_cbc(message, secret_key, iv))
     return bytes(encrypt_ecb(message, secret_key))
 
 
 def verify_encryption(verifying_key: MarlinVerifyingKey, proof: MarlinProof,
                       ciphertext: bytes, iv: Optional[bytes] = None) -> bool:
-    """Public input [1] + LSB-first ciphertext bits, checked by the shared
-    Marlin verifier on the host."""
-    if iv is not None:
-        raise NotPortedError("CBC is not ported")
+    """Public input [1] + LSB-first ciphertext bits, with the iv's bits
+    before them for CBC, checked by the shared Marlin verifier on the
+    host."""
     require(len(ciphertext) % 16 == 0 and len(ciphertext) > 0,
             InvalidInputError,
             f"ciphertext must be a positive multiple of 16 bytes, got "
             f"{len(ciphertext)}")
-    return _verifier.verify(verifying_key, [1] + bits_lsb_first(ciphertext),
-                            proof)
+    instance = [1]
+    if iv is not None:
+        require(len(iv) == 16, InvalidInputError, "iv must be 16 bytes")
+        instance += bits_lsb_first(iv)
+    return _verifier.verify(verifying_key,
+                            instance + bits_lsb_first(ciphertext), proof)

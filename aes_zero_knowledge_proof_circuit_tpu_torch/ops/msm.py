@@ -38,6 +38,7 @@ FQ = fq_ops()
 SCALAR_BITS = 253
 MAX_WINDOW_BITS = 13
 SEGMENT = 32          # most sorted pairs one K3 thread adds in sequence
+PLAIN_PAIRS = 1 << 23  # sorted pairs the plain version sums at once
 
 
 def window_bits(n: int) -> int:
@@ -237,7 +238,24 @@ def _segments(offsets: torch.Tensor, windows: int, buckets: int,
 
 def plain_bucket_sums(points, idx, neg, offsets, windows: int, buckets: int):
     """Bucket totals [W, B] (as a Jacobian triple of [W*B, 12]): the sorted
-    pairs of each bucket summed by a pairwise tree (`curve.run_sums`)."""
+    pairs of each bucket summed by a pairwise tree (`curve.run_sums`), for
+    a group of windows of about PLAIN_PAIRS pairs at a time (the buckets of
+    two windows never meet)."""
+    per = buckets + 1
+    group = max(1, PLAIN_PAIRS * windows // max(1, int(offsets[-1])))
+    parts = []
+    for w0 in range(0, windows, group):
+        w1 = min(windows, w0 + group)
+        lo, hi = int(offsets[w0 * per]), int(offsets[w1 * per])
+        parts.append(_plain_group_sums(
+            points, idx[lo:hi], neg[lo:hi],
+            offsets[w0 * per:w1 * per + 1] - lo, w1 - w0, buckets))
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def _plain_group_sums(points, idx, neg, offsets, windows: int, buckets: int):
+    """plain_bucket_sums over one group of windows (offsets from its own
+    first pair)."""
     dev = points.device
     counts = offsets[1:] - offsets[:-1]
     key = torch.repeat_interleave(

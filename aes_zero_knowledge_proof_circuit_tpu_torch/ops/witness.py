@@ -6,7 +6,8 @@ x, y and s from z, evaluate the 7-coefficient multiply-add
     out = c0 + c1 x + c2 y + c3 s + c4 xy + c5 sx + c6 sy
 
 and scatter into z. All values are bits, so the whole fill is int32 tensor
-work; the plan's index arrays are uploaded once per evaluator.
+work; the plan's index arrays are uploaded once per evaluator. A batch of
+witnesses is one [B, num_vars] tensor, filled level by level together.
 """
 
 from __future__ import annotations
@@ -44,17 +45,28 @@ class WitnessEvaluator:
     def evaluate(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
         """inputs: source name -> flat 0/1 bits. Returns z [num_vars] int32
         on the evaluator's device, z[0] = 1."""
-        z = torch.zeros(self.plan.num_vars, dtype=torch.int32,
+        return self.evaluate_batch(
+            {k: np.asarray(v, np.int32)[None] for k, v in inputs.items()})[0]
+
+    def evaluate_batch(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
+        """inputs: source name -> [B, bits] 0/1 bits, one row a witness.
+        Returns z [B, num_vars] int32 on the evaluator's device: the plan's
+        levels walked once for the whole batch, gathering and scattering
+        along the last axis (the JAX package vmaps its evaluator)."""
+        rows = {np.asarray(v).shape[0] for v in inputs.values()}
+        if len(rows) != 1:
+            raise ValueError(f"inputs disagree on the batch size: {rows}")
+        z = torch.zeros((rows.pop(), self.plan.num_vars), dtype=torch.int32,
                         device=self.device)
-        z[0] = 1
+        z[:, 0] = 1
         for name, (idx, slot) in self.inputs.items():
             bits = torch.as_tensor(np.asarray(inputs[name], np.int32),
                                    device=self.device)
-            z[idx] = bits[slot]
+            z[:, idx] = bits[:, slot]
         for out, xi, yi, si, c in self.levels:
-            x, y, s = z[xi], z[yi], z[si]
-            z[out] = (c[0] + c[1] * x + c[2] * y + c[3] * s + c[4] * x * y
-                      + c[5] * s * x + c[6] * s * y)
+            x, y, s = z[:, xi], z[:, yi], z[:, si]
+            z[:, out] = (c[0] + c[1] * x + c[2] * y + c[3] * s
+                         + c[4] * x * y + c[5] * s * x + c[6] * s * y)
         inst_idx, inst_c, inst_var, inst_q = self.inst
-        z[inst_idx] = inst_c + inst_q * z[inst_var]
+        z[:, inst_idx] = inst_c + inst_q * z[:, inst_var]
         return z

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -14,13 +14,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    shared reduction) and K5 (Fq digit-column product) against their plain
    PyTorch versions on the card, bit-exact (MSM points compared as affine
    points; batch_inv and inv at 2^20 rows with zero rows at the ends, at a
-   chunk boundary and over a whole chunk; the NTT both ways at 2^1 ... 2^20
-   across every pass boundary; K4 with equal, opposite and infinity points
-   in one bucket, printing the branches its levels took; K5 on band-edge
+   chunk boundary and over a whole chunk; the NTT both ways at 2^1 ... 2^21
+   across every pass boundary, three passes at 2^21; K4 with equal,
+   opposite and infinity points in one bucket, printing the branches its
+   levels took; K5 on band-edge
    columns), plus K3 and K4 against the native host Pippenger at 2^16;
    K4's Fq products and inversions on the timed inputs; kernel times and
    plain times at the main path's shapes, where the timed outputs of
-   kernel and plain version are compared as well, each with the card's
+   kernel and plain version are compared as well (the NTT at 2^18 ... 2^21,
+   the MSMs at 2^19 ... 2^21; the JSON line keeps the 16-byte main path's
+   2^20), each with the card's
    name and power limit and its bound (the larger of bytes over 3.35 TB/s
    and 32-bit multiply-adds over 132 SMs x 64 a clock x 1.98 GHz; K4's
    multiply-adds are its batch-affine Fq products on the timed inputs, with
@@ -32,18 +35,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the plain versions by the median of 3 synchronized wall-clock runs;
 4. the ntt_mul path (K5's entry point) at 2^20 columns, with its launches
    and a sample of its columns checked against host integers;
-5. main path: synthesize_keys(16) on the card (the index committed on K4),
+5. srs: the 32-byte CBC template and its SRS of degree 2^21, generated once
+   and checkpointed, so that every 16-byte key truncates it;
+6. main path: synthesize_keys(16) on the card (the index committed on K4),
    a zk proof of one AES-128 block, verification (and rejection of a
    flipped ciphertext bit), a proof serialization round trip, a warm prove
    on each MSM engine with its stage times (the K4 engine chosen by
    ZKAES_MSM_MXU=0, as a user chooses it), the K4 proof verified and its
    flipped bit rejected, zk=False proofs on both engines equal byte for
    byte; then, outside the counted run, the nine index commitments
-   recomputed on K3 and K3 at 2^20 SRS points against the native Pippenger.
+   recomputed on K3, and K3 and K4 at the key's 2^20 + 1 SRS points
+   against the native Pippenger;
+7. cbc: synthesize_keys(16, mode="cbc"), a cold and a warm zk proof with
+   its iv, verification, rejection of a flipped ciphertext bit and of a
+   flipped iv bit, a serialization round trip;
+8. batch: encrypt_batch of two messages on the main path's key under a
+   seeded rng; each proof verifies against its own ciphertext and not the
+   other's, and proof i equals encrypt(m_i) from Random(seed i) byte for
+   byte, the seeds drawn as the JAX package draws them;
+9. 32B: synthesize_keys(32, mode="cbc") (n = 2^19, the index committed on
+   K4 over up to 2^21 points), a cold and a warm zk proof with stage times,
+   verification, rejection of a flipped bit in the second ciphertext block;
+   then K3 and K4 at 2^21 SRS points against the native Pippenger.
 
-Each path (ntt_mul, main) runs with the launch counts set to 0 just before
-it and read just after; every kernel must have launched in the path that
-uses it, and its `launches` entry is that count.
+Each path (ntt_mul, main; and each index and prove of cbc, batch and 32B)
+runs with the launch counts set to 0 just before it and read just after;
+every kernel must have launched in the path that uses it (K1, K2 and K3 in
+each prove, K1, K2 and K4 in each index), and the JSON `launches` entry is
+the main path's count.
 
 The run uses a cache directory of its own (templates, SRS, native library),
 removed at the end, so the index is always computed. The second-to-last
@@ -90,6 +109,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
 PKG = "aes_zero_knowledge_proof_circuit_tpu_torch"
 KEY = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
 MESSAGE = bytes(range(16))
+IV = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
 KERNEL_INFO = {
     "fr_ops": ("csrc/fr_ops.cu",
                "aes_zero_knowledge_proof_circuit_tpu/ops/pallas_field.py:151"),
@@ -109,6 +129,7 @@ KERNEL_INFO = {
 # Programming Guide, arithmetic instructions, compute capability 9.0: 64 a
 # clock an SM; 132 SMs at the 1.98 GHz boost clock)
 HBM_BYTES_S = 3.35e12
+MAIN_LOG = 20      # the 16-byte main path's NTT and MSM size, in the JSON line
 IMAD_S = 132 * 64 * 1.98e9
 # 32-bit multiply-adds of one Montgomery product: 2 (low and high halves)
 # for each of the L^2 limb products of a * b and of m * p
@@ -560,7 +581,7 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
     say(f"[time] Fr mul 2^20: kernel {k:.4f} ms (events), plain {p:.3f} ms, "
         f"bound {results['fr_ops']['bound_ms']:.4f} ms; equal [{CARD}]")
     time_batch_inv(f, with_zero_rows(a), n)
-    for log_n in (18, 19, 20):
+    for log_n in (18, 19, 20, 21):
         eng = ntt_engine(log_n, dev)
         x = random_elements(f, eng.n - 4, gen, dev)
         kernels.reset_counts()
@@ -572,17 +593,20 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
         if err:
             raise AssertionError(f"K2 NTT 2^{log_n}: err {err}")
         fold_err(results["ntt"], err)
+        # the whole NTT: (n/2) log2(n) butterflies of one Fr product; the
+        # input, the output and n/2 twiddles moved once
+        bound = {}
+        set_bound(bound, (2 * eng.n + eng.n // 2) * 32,
+                  eng.n // 2 * log_n * FR_PRODUCT)
         say(f"[time] NTT 2^{log_n}: kernel {k:.4f} ms (events, {launches} "
-            f"launches, passes {eng.widths}), plain {p:.3f} ms; equal "
-            f"[{CARD}]")
-    # the whole NTT at 2^20: (n/2) log2(n) butterflies of one Fr product;
-    # the input, the output and n/2 twiddles moved once
-    results["ntt"].update(ms=k, plain_ms=p)
-    set_bound(results["ntt"], (2 * n + n // 2) * 32,
-              n // 2 * 20 * FR_PRODUCT)
+            f"launches, passes {eng.widths}), bound {bound['bound_ms']:.4f} "
+            f"ms ({bound['bound_by']}), plain {p:.3f} ms; equal [{CARD}]")
+        if log_n == MAIN_LOG:
+            results["ntt"].update(ms=k, plain_ms=p, **bound)
     base = M.points_from_packed(srs_packed, dev)
-    for log_n in (19, 20):
+    for log_n in (19, 20, 21):
         n = 1 << log_n
+        main = log_n == MAIN_LOG
         # the 2^16 SRS powers repeated: repeats exercise the doubling branch
         points = base.repeat(-(-n // base.shape[0]), 1, 1)[:n].contiguous()
         scalars = random_elements(f, n - 4, gen, dev)
@@ -595,12 +619,14 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
                                  f"plain")
         fold_err(results["msm"], err)
         total, k3_point = timed(lambda: M.msm(points, scalars))
-        results["msm"].update(ms=k, plain_ms=p)
-        set_bound(results["msm"], msm_bytes(n), k3_imads(args))
+        bound = {}
+        set_bound(bound, msm_bytes(n), k3_imads(args))
+        if main:
+            results["msm"].update(ms=k, plain_ms=p, **bound)
         say(f"[time] MSM 2^{log_n} (c={args[-1]}): K3 {k:.3f} ms (median of "
-            f"3), bound {results['msm']['bound_ms']:.3f} ms, plain "
-            f"{p:.3f} ms (one run), whole msm() {total:.3f} ms; equal points "
-            f"and window sums [{CARD}]")
+            f"3), bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), "
+            f"plain {p:.3f} ms (one run), whole msm() {total:.3f} ms; equal "
+            f"points and window sums [{CARD}]")
         # K4 on the same points and scalars: the index and prover shapes
         d16 = MD.digit_limbs(scalars)
         t_land, plan = timed(lambda: MP.land(d16))
@@ -617,9 +643,11 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
         if point_err(k4_point, k3_point):
             raise AssertionError(f"msm_device at 2^{log_n} points disagrees "
                                  f"with msm")
-        results["msm_u8"].update(ms=k, plain_ms=p)
         products, inversions = k4_products(plan, kinds)
-        set_bound(results["msm_u8"], msm_bytes(n), products * FQ_PRODUCT)
+        bound = {}
+        set_bound(bound, msm_bytes(n), products * FQ_PRODUCT)
+        if main:
+            results["msm_u8"].update(ms=k, plain_ms=p, **bound)
         lane_scan = {}
         set_bound(lane_scan, msm_bytes(n), lane_scan_imads(d16))
         adds = int(plan.idx.numel()) - int(
@@ -628,8 +656,8 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
             f"chunks {plan.geometry[:, 1].tolist()}, threads "
             f"{plan.geometry[:, 2].tolist()}, {plan.merge_passes} XYZZ "
             f"merge levels): K4 {k:.3f} ms, bound "
-            f"{results['msm_u8']['bound_ms']:.3f} ms "
-            f"({results['msm_u8']['bound_by']}, its Fq products; the former "
+            f"{bound['bound_ms']:.3f} ms "
+            f"({bound['bound_by']}, its Fq products; the former "
             f"lane scan's count {lane_scan['bound_ms']:.3f} ms), plain "
             f"{p:.3f} ms (one run), land {t_land:.3f} ms, "
             f"whole msm_device() {total:.3f} ms; equal points and window "
@@ -640,6 +668,8 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
 
 
 MAIN_PATH = ("fr_ops", "ntt", "msm", "msm_u8")
+PROVE_PATH = ("fr_ops", "ntt", "msm")        # a prove on the default engine
+INDEX_PATH = ("fr_ops", "ntt", "msm_u8")     # an index
 
 
 def require_launched(counts: dict, names, where: str) -> None:
@@ -759,22 +789,172 @@ def phase_main_path(results: dict, dev) -> None:
                                      "differs from K3's")
     say(f"[main] the {len(vk.index_comms)} index commitments (K4) equal "
         f"K3's")
-    # and K3 at 2^20 distinct SRS points against the native Pippenger
+    check_native(pk, dev, "main")
+    return pk, vk
+
+
+def check_native(pk, dev, label: str) -> None:
+    """K3 (msm) and K4 (msm_device) at up to 2^21 distinct SRS points of
+    the key against the native Pippenger, outside the counted run."""
     packed = pk.marlin_pk.srs.powers_g1.packed
-    n = min(1 << 20, packed.shape[0])
+    n = min(1 << 21, packed.shape[0])
     f = fr_ops()
     rnd = random.Random(13)
     scalars = f.from_ints([rnd.randrange(f.modulus) for _ in range(n)], dev,
                           mont=False)
+    points = pk._prover.srs_dev.slice(0, n)
     t0 = time.perf_counter()
-    got = M.msm(prover.srs_dev.slice(0, n), scalars)
+    got3 = M.msm(points, scalars)
     t1 = time.perf_counter()
-    want = M.native_msm(packed, scalars)
+    got4 = MD.msm_device(points, MD.digit_limbs(scalars))
     t2 = time.perf_counter()
-    if point_err(got, want):
+    want = M.native_msm(packed, scalars)
+    t3 = time.perf_counter()
+    if point_err(got3, want):
         raise AssertionError(f"K3 at {n} SRS points disagrees with native")
-    say(f"[main] msm() at {n} SRS points equals the native Pippenger (card "
-        f"{t1 - t0:.3f}s, native {t2 - t1:.3f}s) [{CARD}]")
+    if point_err(got4, want):
+        raise AssertionError(f"K4 at {n} SRS points disagrees with native")
+    say(f"[{label}] msm() (K3) and msm_device() (K4) at {n} SRS points equal "
+        f"the native Pippenger (card {t1 - t0:.3f}s and {t2 - t1:.3f}s, "
+        f"native {t3 - t2:.3f}s) [{CARD}]")
+
+
+def counted(fn, names, where: str):
+    """fn() with the launch counts set to 0 just before and read just
+    after; (its result, the counts, wall seconds). Every kernel in `names`
+    must have launched."""
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    require_launched(counts, names, where)
+    return out, counts, seconds
+
+
+def stage_text(pk) -> str:
+    return ", ".join(f"{k} {v:.3f}s"
+                     for k, v in pk._prover.last_stage_times.items())
+
+
+def flipped(data: bytes, byte: int) -> bytes:
+    bad = bytearray(data)
+    bad[byte] ^= 1
+    return bytes(bad)
+
+
+def phase_srs() -> None:
+    """The SRS checkpoint of the largest key of the run (32-byte CBC,
+    degree 2^21), generated once: every smaller key truncates it."""
+    t0 = time.perf_counter()
+    tpl = api._template_cached(32, "cbc")
+    t1 = time.perf_counter()
+    need = api._srs_degree(tpl)
+    api._srs_for(need, random.Random(17))
+    say(f"[srs] 32-byte CBC template {t1 - t0:.1f}s "
+        f"({tpl.r1cs.num_constraints} constraints); SRS of degree {need} "
+        f"generated and checkpointed in {time.perf_counter() - t1:.1f}s "
+        f"(host, native)")
+
+
+def phase_cbc(dev) -> None:
+    """One 16-byte CBC block: the key, a zk proof with its iv, rejection of
+    a flipped ciphertext bit and of a flipped iv bit, a round trip."""
+    (pk, vk), counts, secs = counted(
+        lambda: api.synthesize_keys(16, mode="cbc", device=dev), INDEX_PATH,
+        "the CBC index")
+    say(f"[cbc] synthesize_keys(16, mode='cbc'): {secs:.1f}s; "
+        f"{pk.template.r1cs.num_instance} instance variables, "
+        f"n=2^{pk.marlin_pk.log_n}, SRS degree {vk.max_degree}; launches "
+        f"{counts} [{CARD}]")
+    ct = api.compute_ciphertext(MESSAGE, KEY, iv=IV)
+    if ct != api.compute_ciphertext(bytes(m ^ v for m, v in zip(MESSAGE, IV)),
+                                    KEY):
+        raise AssertionError("one CBC block is not ECB of m xor iv")
+    for label, seed in (("cold", 5), ("warm", 6)):
+        proof, counts, secs = counted(
+            lambda: api.encrypt(MESSAGE, KEY, pk, rng=random.Random(seed),
+                                iv=IV), PROVE_PATH, f"the {label} CBC prove")
+        say(f"[cbc] {label} prove (zk): {secs:.3f}s; stages {stage_text(pk)};"
+            f" launches {counts} [{CARD}]")
+    if not api.verify_encryption(vk, proof, ct, iv=IV):
+        raise AssertionError("the CBC proof does not verify")
+    if api.verify_encryption(vk, proof, flipped(ct, 0), iv=IV):
+        raise AssertionError("a flipped ciphertext bit still verifies (CBC)")
+    if api.verify_encryption(vk, proof, ct, iv=flipped(IV, 3)):
+        raise AssertionError("a flipped iv bit still verifies (CBC)")
+    blob = api.serialize_proof(proof)
+    back = api.deserialize_proof(blob)
+    if api.serialize_proof(back) != blob or not api.verify_encryption(
+            vk, back, ct, iv=IV):
+        raise AssertionError("CBC serialization round trip failed")
+    say(f"[cbc] proof verifies with its iv; flipped ciphertext bit and "
+        f"flipped iv bit rejected; serialize round trip {len(blob)} bytes")
+
+
+def phase_batch(pk, vk) -> None:
+    """encrypt_batch of two messages on the 16-byte ECB key: each proof
+    verifies against its own ciphertext and not the other's, and proof i
+    equals encrypt(m_i) from Random(seed i), the seeds drawn first from the
+    batch's rng as the JAX package draws them."""
+    messages = [MESSAGE, bytes(range(100, 116))]
+    proofs, counts, secs = counted(
+        lambda: api.encrypt_batch(messages, KEY, pk, rng=random.Random(21)),
+        PROVE_PATH, "the batch")
+    say(f"[batch] encrypt_batch of {len(messages)} 16-byte messages: "
+        f"{secs:.3f}s ({secs / len(messages):.3f}s a proof); launches "
+        f"{counts} [{CARD}]")
+    cts = [api.compute_ciphertext(m, KEY) for m in messages]
+    for i, proof in enumerate(proofs):
+        if not api.verify_encryption(vk, proof, cts[i]):
+            raise AssertionError(f"batch proof {i} does not verify")
+        if api.verify_encryption(vk, proof, cts[1 - i]):
+            raise AssertionError(f"batch proof {i} verifies against the "
+                                 f"other ciphertext")
+    draw = random.Random(21)
+    seeds = [draw.randrange(1 << 62) for _ in messages]
+    for i, (m, seed) in enumerate(zip(messages, seeds)):
+        t0 = time.perf_counter()
+        single = api.encrypt(m, KEY, pk, rng=random.Random(seed))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if api.serialize_proof(single) != api.serialize_proof(proofs[i]):
+            raise AssertionError(f"batch proof {i} differs from encrypt() "
+                                 f"with its seed")
+        say(f"[batch] proof {i}: encrypt() from its seed {secs:.3f}s, equal "
+            f"byte for byte [{CARD}]")
+    say("[batch] both proofs verify; the crossed pair is rejected")
+
+
+def phase_32b(dev) -> None:
+    """Two 16-byte CBC blocks, chained (n = 2^19, SRS degree 2^21): the key,
+    a cold and a warm zk proof with stage times, verification, rejection of
+    a flipped ciphertext bit in the second block; then K3 and K4 at 2^21
+    SRS points against the native Pippenger."""
+    message = bytes(range(32))
+    (pk, vk), counts, secs = counted(
+        lambda: api.synthesize_keys(32, mode="cbc", device=dev), INDEX_PATH,
+        "the 32-byte index")
+    times = ", ".join(f"{k} {v:.1f}s" for k, v in pk.setup_times.items())
+    say(f"[32B] synthesize_keys(32, mode='cbc'): {secs:.1f}s ({times}); "
+        f"n=2^{pk.marlin_pk.log_n}, k=2^{max(vk.log_ks)}, SRS degree "
+        f"{vk.max_degree}; launches {counts} [{CARD}]")
+    for label, seed in (("cold", 7), ("warm", 8)):
+        proof, counts, secs = counted(
+            lambda: api.encrypt(message, KEY, pk, rng=random.Random(seed),
+                                iv=IV), PROVE_PATH,
+            f"the {label} 32-byte prove")
+        say(f"[32B] {label} prove (zk): {secs:.3f}s; stages "
+            f"{stage_text(pk)}; launches {counts} [{CARD}]")
+    ct = api.compute_ciphertext(message, KEY, iv=IV)
+    if not api.verify_encryption(vk, proof, ct, iv=IV):
+        raise AssertionError("the 32-byte CBC proof does not verify")
+    if api.verify_encryption(vk, proof, flipped(ct, 16), iv=IV):
+        raise AssertionError("a flipped bit of the second ciphertext block "
+                             "still verifies")
+    say("[32B] proof verifies; flipped bit in the second block rejected")
+    check_native(pk, dev, "32B")
 
 
 def run(smi: str) -> None:
@@ -790,7 +970,7 @@ def run(smi: str) -> None:
                for name, (src, rep) in KERNEL_INFO.items()}
     gen = np.random.default_rng(0)
     check_field(results, gen, dev, 1 << 20)
-    check_ntt(results, gen, dev, (1, 5, 10, 11, 12, 18, 19, 20))
+    check_ntt(results, gen, dev, (1, 5, 10, 11, 12, 18, 19, 20, 21))
     t0 = time.perf_counter()
     srs = generate_srs_native((1 << 16) - 1, random.Random(3))
     say(f"[K3] 2^16 test points from the native SRS generator: "
@@ -801,7 +981,11 @@ def run(smi: str) -> None:
     check_fq_cols(results, gen, dev)
     time_kernels(results, packed, gen, dev)
     phase_ntt_mul(results, gen, dev)
-    phase_main_path(results, dev)
+    phase_srs()
+    pk, vk = phase_main_path(results, dev)
+    phase_cbc(dev)
+    phase_batch(pk, vk)
+    phase_32b(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

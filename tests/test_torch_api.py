@@ -1,6 +1,9 @@
-"""The port's API surface: what it accepts, the typed errors for what it
-does not do yet (CBC, batches, meshes), and the entry points' device: the
-CUDA card unless the caller asks for the CPU, never a quiet fallback."""
+"""The port's API surface: what it accepts, the typed errors for invalid
+input and for what it does not do yet (meshes), and the entry points'
+device: the CUDA card unless the caller asks for the CPU, never a quiet
+fallback."""
+
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -54,17 +57,46 @@ def test_entry_points_default_to_cuda(entry):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: api.synthesize_keys(16, mode="cbc", device="cpu"),
-    lambda: api.encrypt_batch([MSG], KEY, None),
-    lambda: api.encrypt(MSG, KEY, None, iv=bytes(16)),
     lambda: api.encrypt(MSG, KEY, None, mesh=object()),
-    lambda: api.compute_ciphertext(MSG, KEY, iv=bytes(16)),
-    lambda: api.verify_encryption(None, None, MSG, iv=bytes(16)),
-], ids=["cbc-keys", "batch", "cbc-encrypt", "mesh", "cbc-ct", "cbc-verify"])
+    lambda: api.encrypt_batch([MSG], KEY, None, mesh=object()),
+], ids=["mesh", "batch-mesh"])
 def test_not_ported_paths_raise_typed_error(call):
     with pytest.raises(api.NotPortedError):
         call()
     assert issubclass(api.NotPortedError, api.ZkAesError)
+
+
+def key_for(mode: str) -> api.AESProvingKey:
+    """A proving key that holds only what the input checks read."""
+    return api.AESProvingKey(marlin_pk=None, device=torch.device("cpu"),
+                             template=SimpleNamespace(msg_len=16, mode=mode))
+
+
+@pytest.mark.parametrize("call", [
+    lambda: api.synthesize_keys(16, mode="ctr", device="cpu"),
+    lambda: api.encrypt(MSG, KEY, key_for("ecb"), iv=bytes(16)),
+    lambda: api.encrypt(MSG, KEY, key_for("cbc")),
+    lambda: api.encrypt(MSG, KEY, key_for("cbc"), iv=bytes(15)),
+    lambda: api.verify_encryption(None, None, MSG, iv=bytes(15)),
+    lambda: api.encrypt_batch([], KEY, key_for("ecb")),
+    lambda: api.encrypt_batch([MSG], KEY, key_for("cbc")),
+    lambda: api.encrypt_batch([MSG, MSG[:15]], KEY, key_for("ecb")),
+    lambda: api.encrypt_batch([MSG], KEY[:15], key_for("ecb")),
+], ids=["bad-mode", "iv-with-ecb", "cbc-without-iv", "cbc-iv-15",
+        "verify-iv-15", "empty-batch", "batch-on-cbc", "batch-msg-15",
+        "batch-key-15"])
+def test_invalid_inputs_raise_invalid_input(call):
+    """Where the JAX package raises InvalidInputError, the port does too,
+    before any setup or proving work."""
+    with pytest.raises(api.InvalidInputError):
+        call()
+
+
+def test_reference_style_positional_backend_fails_at_the_call():
+    """The JAX package's third positional parameter is its backend; here
+    everything after rng is keyword-only, so such a call fails at once."""
+    with pytest.raises(TypeError):
+        api.synthesize_keys(16, None, "jax")
 
 
 @pytest.mark.parametrize("length", [0, 15, 17])

@@ -80,10 +80,11 @@ def test_k2_matches_plain(cuda):
     assert torch.equal(eng.intt(eng.ntt(x)), x)
 
 
-@pytest.mark.parametrize("log_n", [1, 10, 11, 12, 13])
+@pytest.mark.parametrize("log_n", [1, 10, 11, 12, 13, 21])
 def test_k2_passes_match_plain(cuda, log_n):
     """Forward and inverse (1/n folded into the last pass) on each side of
-    the one-pass/two-pass boundary."""
+    the one-pass/two-pass boundary, and at 2^21 in three passes (the
+    32-byte key's round-3 cosets)."""
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
 
@@ -203,3 +204,26 @@ def test_k5_matches_plain(cuda):
         assert NM.cols_to_ints(got) == [
             u * v % Q_MOD for u, v in zip(NM.cols_to_ints(x),
                                           NM.cols_to_ints(y))]
+
+
+def test_evaluate_batch_on_the_card_matches_the_cpu(cuda):
+    """The batched witness fill of the 16-byte CBC template on the card
+    equals the same fill on the CPU, and each row the host plan's."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch.models.aes_circuit import (
+        build_template,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.witness import (
+        WitnessEvaluator,
+    )
+
+    tpl = build_template(16, mode="cbc")
+    gen = np.random.default_rng(12)
+    inputs = {k: gen.integers(0, 2, size=(3, 128), dtype=np.int32)
+              for k in ("message", "key", "iv")}
+    got = WitnessEvaluator(tpl.plan, cuda).evaluate_batch(inputs)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    want = WitnessEvaluator(tpl.plan, "cpu").evaluate_batch(inputs)
+    assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(
+        want[1].numpy(), tpl.plan.evaluate({k: v[1] for k, v in
+                                            inputs.items()}))

@@ -16,9 +16,6 @@ from aes_zero_knowledge_proof_circuit_tpu.ops.curve_host import (
     g1_generator as jg1,
 )
 from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
-from aes_zero_knowledge_proof_circuit_tpu.parallel.srs_gen import (
-    generate_srs_native,
-)
 from aes_zero_knowledge_proof_circuit_tpu.utils import serialize as jser
 from aes_zero_knowledge_proof_circuit_tpu.utils import transcript as jtr
 from aes_zero_knowledge_proof_circuit_tpu_torch import convert
@@ -35,7 +32,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.ops.curve_host import (
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import serialize as tser
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import transcript as ttr
-from tests.torch_threads import one_torch_thread  # noqa: F401
+from tests.torch_threads import jax_srs, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -53,9 +50,9 @@ def toy():
     zv = xv * xv % R_MOD
     inst = [1, xv * yv % R_MOD, (xv + yv) * zv % R_MOD]
     na, nb, nc = cs.nnz()
-    srs = generate_srs_native(jindexer.required_degree(
+    srs = jax_srs(jindexer.required_degree(
         cs.num_constraints, cs.num_variables, max(na, nb, nc)),
-        random.Random(5))
+        5)
     pk = jindexer.index(cs, srs)
     return pk, convert.proving_key_from(pk), inst, [xv, yv, zv]
 

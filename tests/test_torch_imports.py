@@ -8,9 +8,14 @@ function.
   card scripts (profile_torch_prove.py, time_field_ntt.py) finds no import
   that names either;
 * the toy circuit is built, indexed, proved (zk=False, CPU) and verified by
-  the port alone in such an interpreter."""
+  the port alone in such an interpreter;
+* so are the CBC and batch paths of the API: the 16-byte CBC template, its
+  batched witness fill with an iv, `encrypt(iv=...)` up to the prover,
+  `verify_encryption(iv=...)` up to the verifier and `encrypt_batch`'s
+  checks."""
 
 import ast
+import os
 import pkgutil
 import subprocess
 import sys
@@ -147,3 +152,52 @@ def test_toy_prove_without_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("proved and verified")
+
+
+CBC_PATHS = BLOCK + """
+import random
+import torch
+from aes_zero_knowledge_proof_circuit_tpu_torch import api
+
+tpl = api._template_cached(16, "cbc")
+key, iv = bytes(range(16)), bytes(range(16, 32))
+msgs = [bytes(16), bytes(range(32, 48))]
+ev = api.WitnessEvaluator(tpl.plan, "cpu")
+zs = ev.evaluate_batch(api._witness_bits(tpl, msgs, key, iv))
+n = tpl.r1cs.num_instance
+for m, z in zip(msgs, zs):
+    ct = api.compute_ciphertext(m, key, iv=iv)
+    assert z[:n].tolist() == [1] + api.bits_lsb_first(iv + ct)
+
+
+class Recorder:
+    def prove(self, instance, witness, rng=None, zk=True):
+        return instance
+
+
+pk = api.AESProvingKey(marlin_pk=None, template=tpl,
+                       device=torch.device("cpu"), _prover=Recorder())
+inst = api.encrypt(msgs[1], key, pk, iv=iv)
+api._verifier.verify = lambda vk, instance, proof: instance == inst
+assert api.verify_encryption(None, None, api.compute_ciphertext(
+    msgs[1], key, iv=iv), iv=iv)
+try:
+    api.encrypt_batch(msgs, key, pk)
+except api.InvalidInputError:
+    pass
+else:
+    raise AssertionError("encrypt_batch took a CBC key")
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m == "jax" or m.startswith(("jax.", "jaxlib", "aes_zero_knowledge_proof_circuit_tpu."))))
+assert not loaded, loaded
+print("cbc paths ran")
+"""
+
+
+def test_cbc_and_batch_paths_without_the_jax_package(tmp_path):
+    env = dict(os.environ, ZKAES_CACHE_DIR=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", CBC_PATHS], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("cbc paths ran")

@@ -3,18 +3,14 @@ scan (ops/msm_device.py, plain K4 version here), and the slot layout equal
 the host indexer's, on the toy circuit and on the u32 add circuit. The JAX
 package builds the circuit and the SRS; `convert` carries them across."""
 
-import random
 
 import pytest
 
 from aes_zero_knowledge_proof_circuit_tpu.marlin import indexer
 from aes_zero_knowledge_proof_circuit_tpu.models.ops_demo import build_u32_add
-from aes_zero_knowledge_proof_circuit_tpu.parallel.srs_gen import (
-    generate_srs_native,
-)
 from aes_zero_knowledge_proof_circuit_tpu_torch import convert
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import indexer as tindexer
-from tests.torch_threads import one_torch_thread  # noqa: F401
+from tests.torch_threads import jax_srs, one_torch_thread  # noqa: F401
 
 
 def toy_circuit():
@@ -30,7 +26,7 @@ def test_index_commitments_equal_host(build):
     na, nb, nc = cs.nnz()
     need = indexer.required_degree(cs.num_constraints, cs.num_variables,
                                    max(na, nb, nc))
-    srs = generate_srs_native(need, random.Random(5))
+    srs = jax_srs(need, 5)
     want = indexer.index(cs, srs)
     got = tindexer.index(convert.r1cs_from(cs), convert.srs_from(srs), "cpu")
     xy = lambda p: None if p.inf else (int(p.x), int(p.y))

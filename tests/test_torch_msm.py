@@ -114,6 +114,28 @@ def test_msm_repeated_and_negated_points(packed):
                                       [s % R_MOD for s in sc[:40]]))
 
 
+@pytest.mark.parametrize("budget", [1, 700, 1 << 30])
+def test_plain_bucket_sums_in_window_groups(packed, budget, monkeypatch):
+    """The plain version sums the buckets of a group of windows at a time
+    (about PLAIN_PAIRS pairs): one window a group, a few, or all at once
+    give the same bucket totals and the same MSM."""
+    n, c = 300, 5
+    sc = rand_scalars(31, n)
+    mags, negs = M.signed_digits(F.from_ints(sc, "cpu", mont=False), c)
+    args = (M.points_from_packed(packed[:n], "cpu"),
+            *M.bucket_runs(mags, negs, 1 << (c - 1)), mags.shape[0],
+            1 << (c - 1))
+    whole = M.plain_bucket_sums(*args)
+    monkeypatch.setattr(M, "PLAIN_PAIRS", budget)
+    got = M.plain_bucket_sums(*args)
+    assert got[0].shape == whole[0].shape == (args[4] * args[5], 12)
+    affine = lambda t: [xy(p) for p in M.xyzz_to_affine(M.jac_to_xyzz(t))]
+    assert affine(got) == affine(whole)
+    point, _ = M.plain_bucket_msm(*args, c)
+    assert xy(M.xyzz_to_affine(point)[0]) == xy(
+        msm_host.msm(host_points(packed[:n]), sc))
+
+
 @pytest.mark.parametrize("c", [2, 5, 13])
 def test_window_width_below_13_and_full(packed, c):
     """bucket_msm at an explicit window width on 100 points (the widths

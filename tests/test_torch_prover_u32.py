@@ -3,16 +3,12 @@ degree 1026): a zk=False proof equals the host prover's byte for byte, on
 either MSM engine. The JAX package builds the circuit, plan, SRS and key;
 `convert` carries them across."""
 
-import random
 
 import numpy as np
 import pytest
 
 from aes_zero_knowledge_proof_circuit_tpu.marlin import indexer, prover, verifier
 from aes_zero_knowledge_proof_circuit_tpu.models.ops_demo import build_u32_add
-from aes_zero_knowledge_proof_circuit_tpu.parallel.srs_gen import (
-    generate_srs_native,
-)
 from aes_zero_knowledge_proof_circuit_tpu.utils import serialize as jax_ser
 from aes_zero_knowledge_proof_circuit_tpu_torch import convert
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import (
@@ -23,7 +19,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.ops.witness import (
     WitnessEvaluator,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import serialize as ser
-from tests.torch_threads import one_torch_thread  # noqa: F401
+from tests.torch_threads import jax_srs, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +28,7 @@ def u32_add():
     na, nb, nc = cs.nnz()
     need = indexer.required_degree(cs.num_constraints, cs.num_variables,
                                    max(na, nb, nc))
-    srs = generate_srs_native(need, random.Random(5))
+    srs = jax_srs(need, 5)
     return cs, plan, srs
 
 
