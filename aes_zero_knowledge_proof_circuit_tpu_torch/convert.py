@@ -9,10 +9,11 @@ vectorized: no Python bigint per element.
 
 Objects: a circuit, witness plan, SRS or proving key built by the JAX
 package becomes this package's own type through `r1cs_from`, `plan_from`,
-`srs_from` and `proving_key_from`. They read plain attributes, integers
-and numpy arrays only (matrices as COO arrays, points as coordinates, SRS
-powers as the packed checkpoint array) and import nothing of the JAX
-package, so no foreign class enters this package.
+`srs_from`, `proving_key_from` and `plonk_proving_key_from`. They read
+plain attributes, integers and numpy arrays only (matrices as COO arrays,
+points as coordinates, SRS powers as the packed checkpoint array) and
+import nothing of the JAX package, so no foreign class enters this
+package.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from .ops.field import FieldOps, fq_ops, fr_ops
 from .ops.field_host import Fq2
 from .ops.field_params import R_MOD
 from .ops.msm import points_from_packed
+from .plonk.backend import PlonkProvingKey, PlonkVerifyingKey
+from .plonk.circuit import Gate, PlonkCircuitData
 from .utils.srs import PackedPowers, pack_points
 
 FR_DIGITS = 34
@@ -36,7 +39,7 @@ FQ_DIGITS = 50
 
 __all__ = ["fr_from_f32_digits", "fq_from_f32_digits", "fr_to_f32_digits",
            "fq_to_f32_digits", "points_from_packed", "r1cs_from", "plan_from",
-           "srs_from", "proving_key_from"]
+           "srs_from", "proving_key_from", "plonk_proving_key_from"]
 
 
 def _exact_bytes(digits: np.ndarray) -> np.ndarray:
@@ -172,12 +175,14 @@ def _commitment(c) -> kzg.Commitment:
     return kzg.Commitment(_g1(c.point))
 
 
+def _kzg_vk_from(kv) -> kzg.VerifierKey:
+    return kzg.VerifierKey(g=_g1(kv.g), gamma_g=_g1(kv.gamma_g), h=_g2(kv.h),
+                           tau_h=_g2(kv.tau_h), max_degree=int(kv.max_degree))
+
+
 def _vk_from(vk) -> MarlinVerifyingKey:
-    kv = vk.kzg_vk
     return MarlinVerifyingKey(
-        kzg_vk=kzg.VerifierKey(g=_g1(kv.g), gamma_g=_g1(kv.gamma_g),
-                               h=_g2(kv.h), tau_h=_g2(kv.tau_h),
-                               max_degree=int(kv.max_degree)),
+        kzg_vk=_kzg_vk_from(vk.kzg_vk),
         log_n=int(vk.log_n), log_x=int(vk.log_x),
         num_instance=int(vk.num_instance),
         log_ks=[int(v) for v in vk.log_ks], max_degree=int(vk.max_degree),
@@ -202,3 +207,33 @@ def proving_key_from(pk) -> MarlinProvingKey:
         srs=srs, vk=_vk_from(pk.vk), r1cs=r1cs_from(pk.r1cs),
         log_n=int(pk.log_n), log_x=int(pk.log_x),
         var_to_slot=[int(v) for v in pk.var_to_slot], matrices=matrices)
+
+
+def _ints(values):
+    return [int(v) for v in values]
+
+
+def plonk_proving_key_from(pk) -> PlonkProvingKey:
+    """A Plonk proving key: the compiled circuit (gates, sigma, selector and
+    sigma evaluations), the selector and sigma polynomials, the SRS and the
+    verifying key's commitments."""
+    d = pk.data
+    data = PlonkCircuitData(
+        n=int(d.n), log_n=int(d.log_n), omega=int(d.omega),
+        ks=tuple(_ints(d.ks)), num_public=int(d.num_public),
+        rows=[Gate(int(g.ql), int(g.qr), int(g.qo), int(g.qm), int(g.qc),
+                   int(g.a), int(g.b), int(g.c)) for g in d.rows],
+        sigma=_ints(d.sigma),
+        s_sigma_evals=[_ints(col) for col in d.s_sigma_evals],
+        selector_evals=[_ints(col) for col in d.selector_evals])
+    vk = pk.vk
+    return PlonkProvingKey(
+        data=data, srs=srs_from(pk.srs),
+        selector_polys=[_ints(p) for p in pk.selector_polys],
+        s_sigma_polys=[_ints(p) for p in pk.s_sigma_polys],
+        vk=PlonkVerifyingKey(
+            n=int(vk.n), omega=int(vk.omega), ks=tuple(_ints(vk.ks)),
+            num_public=int(vk.num_public),
+            comm_selectors=[_commitment(c) for c in vk.comm_selectors],
+            comm_s_sigma=[_commitment(c) for c in vk.comm_s_sigma],
+            kzg_vk=_kzg_vk_from(vk.kzg_vk)))

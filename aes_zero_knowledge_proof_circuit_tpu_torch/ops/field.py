@@ -368,6 +368,17 @@ class FieldOps:
         """Fermat inverse, elementwise (0 maps to 0): one pow launch."""
         return self.pow(a, self.modulus - 2)
 
+    def prefix_mul(self, a: torch.Tensor) -> torch.Tensor:
+        """Inclusive running products along axis 0, as F32Ops._prefix_mul:
+        a Hillis-Steele scan, round d multiplying rows [d, n) by rows
+        [0, n - d) of the round before (ceil(log2 n) products)."""
+        self._check(a)
+        out, d = a, 1
+        while d < a.shape[0]:
+            out = torch.cat([out[:d], self.mul(out[:-d], out[d:])])
+            d <<= 1
+        return out
+
     def is_zero(self, a: torch.Tensor) -> torch.Tensor:
         return (a == 0).all(dim=-1)
 

@@ -211,6 +211,9 @@ def g1_msm(points, scalars: Sequence[int]):
     cdll = lib()
     if cdll is None or not points:
         return None
+    packed = getattr(points, "packed", None)
+    if packed is not None:      # utils/srs.PackedPowers: no per-point packing
+        return g1_msm_packed(packed, pack_scalars(scalars))
     pts, inf = pack_points(points)
     sca = pack_scalars(scalars)
     out = np.zeros(18, np.uint64)

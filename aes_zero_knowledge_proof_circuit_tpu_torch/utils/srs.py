@@ -33,7 +33,8 @@ log = logging.getLogger(__name__)
 class PackedPowers:
     """Lazy list-like view over packed affine G1 powers: [N, 2, 24] uint32
     standard-form 16-bit limbs (the checkpoint layout); host AffinePoints are
-    built only on item access. `.packed` feeds the device upload."""
+    built only on item access, and a slice is another view. `.packed` feeds
+    the device upload and the native MSM."""
 
     def __init__(self, packed: np.ndarray):
         self.packed = packed
@@ -49,8 +50,8 @@ class PackedPowers:
         return g1_point(x, y)
 
     def __getitem__(self, idx):
-        if isinstance(idx, slice):
-            return [self._point(i) for i in range(*idx.indices(len(self)))]
+        if isinstance(idx, slice):     # a view, still packed (host commits)
+            return PackedPowers(self.packed[idx])
         return self._point(idx)
 
     def __iter__(self):

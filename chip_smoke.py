@@ -56,13 +56,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
 9. 32B: synthesize_keys(32, mode="cbc") (n = 2^19, the index committed on
    K4 over up to 2^21 points), a cold and a warm zk proof with stage times,
    verification, rejection of a flipped bit in the second ciphertext block;
-   then K3 and K4 at 2^21 SRS points against the native Pippenger.
+   then K3 and K4 at 2^21 SRS points against the native Pippenger;
+10. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
+   setup on the SRS checkpoint truncated to degree n + 8, a cold and a warm
+   zk proof on the card (TorchPlonkProver: the 2^21 coset transforms on K2,
+   every commitment on K3) with stage times, verified on the host, and
+   rejected against a flipped ciphertext bit; then a chain circuit of 2^12
+   gates whose proof on the card equals the host prover's field for field.
 
-Each path (ntt_mul, main; and each index and prove of cbc, batch and 32B)
-runs with the launch counts set to 0 just before it and read just after;
-every kernel must have launched in the path that uses it (K1, K2 and K3 in
-each prove, K1, K2 and K4 in each index), and the JSON `launches` entry is
-the main path's count.
+Each path (ntt_mul, main; and each index and prove of cbc, batch, 32B and
+plonk) runs with the launch counts set to 0 just before it and read just
+after; every kernel must have launched in the path that uses it (K1, K2
+and K3 in each prove, K1, K2 and K4 in each index), and the JSON
+`launches` entry is the main path's count.
 
 The run uses a cache directory of its own (templates, SRS, native library),
 removed at the end, so the index is always computed. The second-to-last
@@ -101,7 +107,19 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import (
     fq_ops,
     fr_ops,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import R_MOD
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
+from aes_zero_knowledge_proof_circuit_tpu_torch.plonk import backend as plonk
+from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.aes_map import (
+    AesPlonkCircuit,
+)
+from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.circuit import (
+    PlonkCircuit,
+)
+from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
+    TorchPlonkProver,
+    field_rows,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
     generate_srs_native,
 )
@@ -957,7 +975,113 @@ def phase_32b(dev) -> None:
     check_native(pk, dev, "32B")
 
 
+def build_chain(num_gates: int):
+    """scripts/run_plonk_device.py:25 on the port's PlonkCircuit: public out;
+    private x; x_{i+1} = x_i^2 + x_i with copy constraints; out = the last.
+    (circuit, assignment, out)."""
+    c = PlonkCircuit()
+    out_pub = c.public_input()
+    x = c.var()
+    assign = {x: 3}
+    cur, val = x, 3
+    while len(c.gates) < num_gates - 2:
+        sq = c.mul(cur, cur)
+        assign[sq] = val * val % R_MOD
+        s = c.add(sq, cur)
+        assign[s] = (val * val + val) % R_MOD
+        cur, val = s, (val * val + val) % R_MOD
+    c.assert_equal(cur, out_pub)
+    return c, assign, val
+
+
+def phase_plonk(dev) -> None:
+    """One AES-128 block proved with Plonk on the card; the host verifies it
+    and rejects a flipped ciphertext bit. Then a 2^12-gate chain, whose card
+    proof must equal the host prover's from the same seed."""
+    t0 = time.perf_counter()
+    ac = AesPlonkCircuit()
+    data = ac.circuit.compile()
+    gates = len(ac.circuit.gates)
+    say(f"[plonk] AES-128 circuit: {gates} gates, n=2^{data.log_n}, "
+        f"{data.num_public} public inputs; built and compiled in "
+        f"{time.perf_counter() - t0:.1f}s (host) [{CARD}]")
+    if (gates, data.n) != (272_544, 1 << 19):
+        raise AssertionError(f"AES-Plonk has {gates} gates, n={data.n}")
+    t0 = time.perf_counter()
+    srs = api._srs_for(data.n + 8, random.Random(17))
+    t1 = time.perf_counter()
+    pk = plonk.setup(ac.circuit, srs=srs)
+    t2 = time.perf_counter()
+    prover = TorchPlonkProver(pk, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    say(f"[plonk] SRS truncated to degree {srs.max_degree} {t1 - t0:.1f}s; "
+        f"host setup {t2 - t1:.1f}s (8 interpolations and commitments); "
+        f"prover init on the card {t3 - t2:.1f}s (9 cosets of "
+        f"2^{data.log_n + 2}) [{CARD}]")
+    ct = api.compute_ciphertext(MESSAGE, KEY)
+    public = ac.public_values(ct)
+    t0 = time.perf_counter()
+    assign = ac.assign(MESSAGE, KEY)
+    t1 = time.perf_counter()
+    cols = ac.circuit.wire_columns(assign, public)
+    t2 = time.perf_counter()
+    rows = [field_rows(col, dev) for col in cols]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    f = fr_ops()
+    rows_int = [f.from_ints(col, dev) for col in cols]
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    if not all(torch.equal(a, b) for a, b in zip(rows, rows_int)):
+        raise AssertionError("field_rows and from_ints disagree on the wires")
+    say(f"[plonk] witness replay {t1 - t0:.2f}s, wire_columns {t2 - t1:.2f}s "
+        f"(host); the three columns to Montgomery rows on the card through "
+        f"from_small {t3 - t2:.3f}s, through from_ints {t4 - t3:.3f}s, "
+        f"equal [{CARD}]")
+    for label, seed in (("cold", 12), ("warm", 13)):
+        proof, counts, secs = counted(
+            lambda: prover.prove(assign, public, ac.circuit,
+                                 rng=random.Random(seed)), PROVE_PATH,
+            f"the {label} AES-Plonk prove")
+        say(f"[plonk] {label} prove (zk): {secs:.3f}s; stages "
+            + ", ".join(f"{k} {v:.3f}s"
+                        for k, v in prover.last_stage_times.items())
+            + f"; launches {counts} [{CARD}]")
+    t0 = time.perf_counter()
+    if not plonk.verify(pk.vk, proof, public):
+        raise AssertionError("the AES-Plonk proof does not verify")
+    t1 = time.perf_counter()
+    if plonk.verify(pk.vk, proof, ac.public_values(flipped(ct, 0))):
+        raise AssertionError("a flipped ciphertext bit still verifies "
+                             "(AES-Plonk)")
+    say(f"[plonk] proof verifies on the host ({t1 - t0:.2f}s); flipped "
+        f"ciphertext bit rejected [{CARD}]")
+
+    c, assign, out = build_chain(1 << 12)
+    t0 = time.perf_counter()
+    pk = plonk.setup(c, srs=api._srs_for(c.compile().n + 8,
+                                         random.Random(17)))
+    t1 = time.perf_counter()
+    want = plonk.prove(pk, assign, [out], c, rng=random.Random(14))
+    t2 = time.perf_counter()
+    got, counts, secs = counted(
+        lambda: TorchPlonkProver(pk, device=dev).prove(
+            assign, [out], c, rng=random.Random(14)), PROVE_PATH,
+        "the chain prove")
+    if got != want:
+        raise AssertionError("the chain proof on the card differs from the "
+                             "host prover's")
+    if not plonk.verify(pk.vk, got, [out]):
+        raise AssertionError("the chain proof does not verify")
+    say(f"[plonk] chain of {len(c.gates)} gates (n=2^{pk.data.log_n}): "
+        f"host setup {t1 - t0:.1f}s, host prove {t2 - t1:.1f}s, card init "
+        f"and prove {secs:.3f}s; launches {counts}; all 9 commitments and 6 "
+        f"evaluations equal the host prover's; verifies [{CARD}]")
+
+
 def run(smi: str) -> None:
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
@@ -986,6 +1110,7 @@ def run(smi: str) -> None:
     phase_cbc(dev)
     phase_batch(pk, vk)
     phase_32b(dev)
+    phase_plonk(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -993,6 +1118,8 @@ def run(smi: str) -> None:
         missing = [k for k in keys if k not in entry]
         if missing:
             raise AssertionError(f"kernel {entry['name']} lacks {missing}")
+    say(f"[total] build and every phase: "
+        f"{time.perf_counter() - t_start:.0f}s [{CARD}]")
     say(json.dumps({"kernels": [results[k] for k in KERNEL_INFO]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -35,7 +35,8 @@ def test_device_is_required():
         api.synthesize_keys(16)
 
 
-@pytest.mark.parametrize("entry", ["prover", "index", "witness", "main"])
+@pytest.mark.parametrize("entry", ["prover", "index", "witness", "main",
+                                   "plonk_prover"])
 def test_entry_points_default_to_cuda(entry):
     from aes_zero_knowledge_proof_circuit_tpu_torch import __main__ as cli
     from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import indexer
@@ -45,13 +46,17 @@ def test_entry_points_default_to_cuda(entry):
     from aes_zero_knowledge_proof_circuit_tpu_torch.ops.witness import (
         WitnessEvaluator,
     )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
+        TorchPlonkProver,
+    )
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default would run")
     call = {"prover": lambda: TorchProver(None),
             "index": lambda: indexer.index(None, None),
             "witness": lambda: WitnessEvaluator(None),
-            "main": lambda: cli.main([])}[entry]
+            "main": lambda: cli.main([]),
+            "plonk_prover": lambda: TorchPlonkProver(None)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

@@ -227,3 +227,40 @@ def test_evaluate_batch_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(
         want[1].numpy(), tpl.plan.evaluate({k: v[1] for k, v in
                                             inputs.items()}))
+
+
+def test_plonk_chain_proof_on_the_card_matches_the_cpu(cuda):
+    """A Plonk proof of a 2^10-gate chain (n = 2^11, cosets of 2^13) on the
+    card, launching K1, K2 and K3, equals the same proof through the plain
+    versions on the CPU, field for field, and verifies."""
+    import random
+
+    from aes_zero_knowledge_proof_circuit_tpu_torch import kernels
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import (
+        R_MOD,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.plonk import (
+        PlonkCircuit,
+        setup,
+        verify,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
+        TorchPlonkProver,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+        generate_srs_native,
+    )
+    from torch_threads import chain_circuit
+
+    c, assign, out = chain_circuit(PlonkCircuit, 1 << 10, R_MOD)
+    pk = setup(c, srs=generate_srs_native(c.compile().n + 8,
+                                          random.Random(3)))
+    kernels.reset_counts()
+    got = TorchPlonkProver(pk, cuda).prove(assign, [out], c,
+                                           rng=random.Random(6))
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("fr_ops", "ntt", "msm")), counts
+    want = TorchPlonkProver(pk, "cpu").prove(assign, [out], c,
+                                             rng=random.Random(6))
+    assert got == want
+    assert verify(pk.vk, got, [out])

@@ -56,7 +56,9 @@ def test_module_list_covers_the_slice():
                  "utils.srs", "utils.native", "marlin.indexer",
                  "marlin.prover", "__main__", "marlin.verifier",
                  "models.aes_circuit", "ops.kzg", "utils.serialize",
-                 "utils.transcript", "utils.device"):
+                 "utils.transcript", "utils.device", "plonk",
+                 "plonk.circuit", "plonk.aes_map", "plonk.backend",
+                 "plonk.prover"):
         assert f"{port.__name__}.{leaf}" in names
 
 

@@ -368,3 +368,21 @@ def test_pack_points_layout_matches_checkpoint():
     pts = [g, g.double(), g.mul_scalar(99)]
     assert [xy(p) for p in PackedPowers(pack_points(pts))] == [
         xy(p) for p in pts]
+
+
+def test_host_msm_over_a_packed_slice(packed):
+    """The host MSM over a slice of packed SRS powers (a packed view, the
+    native MSM on the checkpoint layout) equals it over the same points as
+    a list, and the Python Pippenger."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import (
+        msm_host as port_msm_host,
+    )
+
+    powers = PackedPowers(packed)
+    view = powers[3:300]
+    assert isinstance(view, PackedPowers)
+    assert [xy(p) for p in view] == [xy(powers[i]) for i in range(3, 300)]
+    sc = rand_scalars(31, len(view))
+    got = port_msm_host.msm(view, sc)
+    assert xy(got) == xy(port_msm_host.msm(list(view), sc))
+    assert xy(got) == xy(port_msm_host._msm_python(list(view), sc))

@@ -1,5 +1,6 @@
 """Shared helpers of the port's CPU tests (import them into a test module):
-one torch thread a test process, and the JAX package's native SRS."""
+one torch thread a test process, the JAX package's native SRS, and the
+Plonk chain circuit."""
 
 import fcntl
 import os
@@ -57,3 +58,23 @@ def jax_srs(max_degree: int, seed: int):
         why = "; ".join(reasons.messages) or "ZKAES_NO_NATIVE is set"
         pytest.fail(f"the JAX package's native library is unavailable: {why}")
     return generate_srs_native(max_degree, random.Random(seed))
+
+
+def chain_circuit(circuit_cls, num_gates: int, r_mod: int):
+    """The chain circuit of scripts/run_plonk_device.py on `circuit_cls`
+    (either package's PlonkCircuit): public out; private x; x_{i+1} = x_i^2
+    + x_i with copy constraints throughout; out = the last. (circuit,
+    assignment, out); about num_gates gates, so n = 2 num_gates."""
+    c = circuit_cls()
+    out_pub = c.public_input()
+    x = c.var()
+    assign = {x: 3}
+    cur, val = x, 3
+    while len(c.gates) < num_gates - 2:
+        sq = c.mul(cur, cur)
+        assign[sq] = val * val % r_mod
+        s = c.add(sq, cur)
+        assign[s] = (val * val + val) % r_mod
+        cur, val = s, (val * val + val) % r_mod
+    c.assert_equal(cur, out_pub)
+    return c, assign, val
