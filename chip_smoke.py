@@ -14,16 +14,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    shared reduction) and K5 (Fq digit-column product) against their plain
    PyTorch versions on the card, bit-exact (MSM points compared as affine
    points; batch_inv and inv at 2^20 rows with zero rows at the ends, at a
-   chunk boundary and over a whole chunk; the NTT both ways at 2^1 ... 2^21
-   across every pass boundary, three passes at 2^21; K4 with equal,
+   chunk boundary and over a whole chunk; the NTT both ways at 2^1 ... 2^22
+   across every pass boundary, three passes at 2^21 and 2^22; K4 with equal,
    opposite and infinity points in one bucket, printing the branches its
    levels took; K5 on band-edge
    columns), plus K3 and K4 against the native host Pippenger at 2^16;
    K4's Fq products and inversions on the timed inputs; kernel times and
    plain times at the main path's shapes, where the timed outputs of
-   kernel and plain version are compared as well (the NTT at 2^18 ... 2^21,
-   the MSMs at 2^19 ... 2^21; the JSON line keeps the 16-byte main path's
-   2^20), each with the card's
+   kernel and plain version are compared as well (the NTT at 2^18 ... 2^22;
+   the MSMs at 2^19 and 2^20, and K3 and K4 alone at 2^21 and 2^22, where
+   K4's MSM is held to K3's and the native checks below are the reference;
+   the JSON line keeps the 16-byte main path's 2^20), each with the card's
    name and power limit and its bound (the larger of bytes over 3.35 TB/s
    and 32-bit multiply-adds over 132 SMs x 64 a clock x 1.98 GHz; K4's
    multiply-adds are its batch-affine Fq products on the timed inputs, with
@@ -35,8 +36,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the plain versions by the median of 3 synchronized wall-clock runs;
 4. the ntt_mul path (K5's entry point) at 2^20 columns, with its launches
    and a sample of its columns checked against host integers;
-5. srs: the 32-byte CBC template and its SRS of degree 2^21, generated once
-   and checkpointed, so that every 16-byte key truncates it;
+5. srs: the 64-byte ECB template and its SRS of degree 2^22, generated once
+   and checkpointed, so that every smaller key truncates it;
 6. main path: synthesize_keys(16) on the card (the index committed on K4),
    a zk proof of one AES-128 block, verification (and rejection of a
    flipped ciphertext bit), a proof serialization round trip, a warm prove
@@ -56,16 +57,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
 9. 32B: synthesize_keys(32, mode="cbc") (n = 2^19, the index committed on
    K4 over up to 2^21 points), a cold and a warm zk proof with stage times,
    verification, rejection of a flipped bit in the second ciphertext block;
-   then K3 and K4 at 2^21 SRS points against the native Pippenger;
-10. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
+   then K3 and K4 at the key's 2^21 + 1 SRS points against the native
+   Pippenger;
+10. 64B: synthesize_keys(64) (four ECB blocks: n = 2^20, the index
+   committed on K4 over up to 2^21 points, round-3 cosets and SRS of 2^22),
+   a cold and a warm zk proof on the K3 engine and a warm one on the K4
+   engine with stage times, zk=False proofs on both engines equal byte for
+   byte, verification, rejection of a flipped bit in the fourth ciphertext
+   block, a serialization round trip, the card's peak memory in the
+   proves; then K3 and K4 at the key's 2^22 + 1 SRS points against the
+   native Pippenger;
+11. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
    setup on the SRS checkpoint truncated to degree n + 8, a cold and a warm
    zk proof on the card (TorchPlonkProver: the 2^21 coset transforms on K2,
    every commitment on K3) with stage times, verified on the host, and
    rejected against a flipped ciphertext bit; then a chain circuit of 2^12
    gates whose proof on the card equals the host prover's field for field.
 
-Each path (ntt_mul, main; and each index and prove of cbc, batch, 32B and
-plonk) runs with the launch counts set to 0 just before it and read just
+Each path (ntt_mul, main; and each index and prove of cbc, batch, 32B, 64B
+and plonk) runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched in the path that uses it (K1, K2
 and K3 in each prove, K1, K2 and K4 in each index), and the JSON
 `launches` entry is the main path's count.
@@ -148,6 +158,7 @@ KERNEL_INFO = {
 # clock an SM; 132 SMs at the 1.98 GHz boost clock)
 HBM_BYTES_S = 3.35e12
 MAIN_LOG = 20      # the 16-byte main path's NTT and MSM size, in the JSON line
+PLAIN_MSM_LOGS = (19, 20)   # MSM sizes whose plain versions are timed too
 IMAD_S = 132 * 64 * 1.98e9
 # 32-bit multiply-adds of one Montgomery product: 2 (low and high halves)
 # for each of the L^2 limb products of a * b and of m * p
@@ -399,6 +410,22 @@ def k4_products(plan, kinds: dict):
     return products, blocks
 
 
+def landing_kinds(plan) -> dict:
+    """K4's level items counted from the landing alone, where the plain
+    version does not run: at each affine level a bucket's inputs join in
+    pairs and an odd last one is copied. A pair is counted as an add (6
+    products), so a doubling (7) is undercounted and the bound stays a
+    least time; the SRS points hold no infinity and no negated pair, so no
+    pair cancels. At the plain version's sizes the pairs must equal its
+    adds, doublings and cancellations."""
+    kinds = {"add": 0, "copy": 0}
+    for lvl in range(plan.levels):
+        m = plan.first[lvl][1:] - plan.first[lvl][:-1]
+        kinds["add"] += int((m // 2).sum())
+        kinds["copy"] += int((m % 2).sum())
+    return kinds
+
+
 def kinds_text(kinds: dict) -> str:
     return ", ".join(f"{k} {kinds.get(k, 0)}" for k in MP.KINDS)
 
@@ -599,7 +626,7 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
     say(f"[time] Fr mul 2^20: kernel {k:.4f} ms (events), plain {p:.3f} ms, "
         f"bound {results['fr_ops']['bound_ms']:.4f} ms; equal [{CARD}]")
     time_batch_inv(f, with_zero_rows(a), n)
-    for log_n in (18, 19, 20, 21):
+    for log_n in (18, 19, 20, 21, 22):
         eng = ntt_engine(log_n, dev)
         x = random_elements(f, eng.n - 4, gen, dev)
         kernels.reset_counts()
@@ -622,20 +649,24 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
         if log_n == MAIN_LOG:
             results["ntt"].update(ms=k, plain_ms=p, **bound)
     base = M.points_from_packed(srs_packed, dev)
-    for log_n in (19, 20, 21):
+    for log_n in (19, 20, 21, 22):
         n = 1 << log_n
         main = log_n == MAIN_LOG
+        plain = log_n in PLAIN_MSM_LOGS
         # the 2^16 SRS powers repeated: repeats exercise the doubling branch
         points = base.repeat(-(-n // base.shape[0]), 1, 1)[:n].contiguous()
         scalars = random_elements(f, n - 4, gen, dev)
         args = msm_inputs(points, scalars)
         k, got = timed(lambda: M.bucket_msm(*args))
-        p, want = timed(lambda: M.plain_bucket_msm(*args), reps=1)
-        err = xyzz_err(got, want)
-        if err:
-            raise AssertionError(f"K3 at 2^{log_n} points disagrees with "
-                                 f"plain")
-        fold_err(results["msm"], err)
+        plain_text = "not run"
+        if plain:
+            p, want = timed(lambda: M.plain_bucket_msm(*args), reps=1)
+            err = xyzz_err(got, want)
+            if err:
+                raise AssertionError(f"K3 at 2^{log_n} points disagrees with "
+                                     f"plain")
+            fold_err(results["msm"], err)
+            plain_text = f"{p:.3f} ms (one run)"
         total, k3_point = timed(lambda: M.msm(points, scalars))
         bound = {}
         set_bound(bound, msm_bytes(n), k3_imads(args))
@@ -643,20 +674,32 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
             results["msm"].update(ms=k, plain_ms=p, **bound)
         say(f"[time] MSM 2^{log_n} (c={args[-1]}): K3 {k:.3f} ms (median of "
             f"3), bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), "
-            f"plain {p:.3f} ms (one run), whole msm() {total:.3f} ms; equal "
-            f"points and window sums [{CARD}]")
+            f"plain {plain_text}, whole msm() {total:.3f} ms; "
+            + ("equal points and window sums" if plain else
+               "plain not run (the native checks hold K3 past 2^20)")
+            + f" [{CARD}]")
         # K4 on the same points and scalars: the index and prover shapes
         d16 = MD.digit_limbs(scalars)
         t_land, plan = timed(lambda: MP.land(d16))
         k, got = timed(lambda: MP.scan_msm(points, plan))
-        kinds = {}
-        p, want = timed(lambda: MP.plain_scan_msm(points, plan, kinds),
-                        reps=1)
-        err = xyzz_err(got, want)
-        if err:
-            raise AssertionError(f"K4 at 2^{log_n} points disagrees with "
-                                 f"plain")
-        fold_err(results["msm_u8"], err)
+        kinds = landing_kinds(plan)
+        plain_text = "not run"
+        if plain:
+            counted_kinds = kinds
+            kinds = {}
+            p, want = timed(lambda: MP.plain_scan_msm(points, plan, kinds),
+                            reps=1)
+            err = xyzz_err(got, want)
+            if err:
+                raise AssertionError(f"K4 at 2^{log_n} points disagrees with "
+                                     f"plain")
+            fold_err(results["msm_u8"], err)
+            if counted_kinds["add"] != sum(kinds.get(k, 0) for k in
+                                           ("add", "dbl", "cancel")):
+                raise AssertionError(f"the landing's pairs {counted_kinds} "
+                                     f"disagree with the plain levels' "
+                                     f"{kinds}")
+            plain_text = f"{p:.3f} ms (one run)"
         total, k4_point = timed(lambda: MD.msm_device(points, d16))
         if point_err(k4_point, k3_point):
             raise AssertionError(f"msm_device at 2^{log_n} points disagrees "
@@ -677,12 +720,14 @@ def time_kernels(results: dict, srs_packed: np.ndarray, gen, dev) -> None:
             f"{bound['bound_ms']:.3f} ms "
             f"({bound['bound_by']}, its Fq products; the former "
             f"lane scan's count {lane_scan['bound_ms']:.3f} ms), plain "
-            f"{p:.3f} ms (one run), land {t_land:.3f} ms, "
-            f"whole msm_device() {total:.3f} ms; equal points and window "
-            f"sums, MSM equal to K3's [{CARD}]")
+            f"{plain_text}, land {t_land:.3f} ms, whole msm_device() "
+            f"{total:.3f} ms; "
+            + ("equal points and window sums, " if plain else "")
+            + f"MSM equal to K3's [{CARD}]")
         say(f"[time] 8-bit MSM 2^{log_n} work: {adds} bucket adds; Fq "
             f"products {products} ({products / max(1, adds):.3f} an add), "
-            f"{inversions} inversions; level items {kinds_text(kinds)}")
+            f"{inversions} inversions; level items {kinds_text(kinds)}"
+            + ("" if plain else " (from the landing: pairs as adds)"))
 
 
 MAIN_PATH = ("fr_ops", "ntt", "msm", "msm_u8")
@@ -713,7 +758,7 @@ def warm_prove(pk, label: str):
     return proof, counts
 
 
-def pallas_engine_key(pk):
+def pallas_engine_key(pk, message: bytes = MESSAGE, tag: str = "main"):
     """A proving key whose prover commits on the K4 engine, chosen the way
     a user chooses it: ZKAES_MSM_MXU=0 when the prover is made."""
     pk4 = dataclasses.replace(pk, _prover=None, _witness=None)
@@ -721,8 +766,8 @@ def pallas_engine_key(pk):
     os.environ["ZKAES_MSM_MXU"] = "0"
     try:
         t0 = time.perf_counter()
-        proof = api.encrypt(MESSAGE, KEY, pk4, rng=random.Random(3), zk=True)
-        say(f"[main] cold prove (zk, K4 engine): "
+        proof = api.encrypt(message, KEY, pk4, rng=random.Random(3), zk=True)
+        say(f"[{tag}] cold prove (zk, K4 engine): "
             f"{time.perf_counter() - t0:.1f}s [{CARD}]")
     finally:
         if old is None:
@@ -762,12 +807,8 @@ def phase_main_path(results: dict, dev) -> None:
     say(f"[main] cold prove (zk): {time.perf_counter() - t0:.1f}s [{CARD}]")
     ct = api.compute_ciphertext(MESSAGE, KEY)
     check_proof(vk, proof, ct, "cold")
-    blob = api.serialize_proof(proof)
-    back = api.deserialize_proof(blob)
-    if api.serialize_proof(back) != blob or not api.verify_encryption(
-            vk, back, ct):
-        raise AssertionError("serialization round trip failed")
-    say(f"[main] serialize round trip: {len(blob)} bytes, verifies")
+    say(f"[main] serialize round trip: {round_trip(vk, proof, ct)} bytes, "
+        f"verifies")
 
     warm, counts = warm_prove(pk, "K3 engine")
     require_launched(counts, ("fr_ops", "ntt", "msm"), "the K3-engine prove")
@@ -781,13 +822,7 @@ def phase_main_path(results: dict, dev) -> None:
         raise AssertionError("the K4-engine prove launched K3")
     check_proof(vk, warm4, ct, "warm K4-engine")
 
-    plain3 = api.encrypt(MESSAGE, KEY, pk, rng=random.Random(4), zk=False)
-    plain4 = api.encrypt(MESSAGE, KEY, pk4, rng=random.Random(4), zk=False)
-    blob3, blob4 = api.serialize_proof(plain3), api.serialize_proof(plain4)
-    if blob3 != blob4 or not api.verify_encryption(vk, plain4, ct):
-        raise AssertionError("the zk=False proofs of the two engines differ")
-    say(f"[main] zk=False proofs on K3 and K4 engines: {len(blob3)} bytes, "
-        f"equal byte for byte, verify")
+    engines_agree(vk, pk, pk4, MESSAGE, ct, "main")
 
     after = kernels.launch_counts()
     say(f"[main] launches in the whole main path: {after}")
@@ -811,15 +846,38 @@ def phase_main_path(results: dict, dev) -> None:
     return pk, vk
 
 
+def round_trip(vk, proof, ct: bytes, iv=None) -> int:
+    """Serialize, deserialize and verify a proof; its length in bytes."""
+    blob = api.serialize_proof(proof)
+    back = api.deserialize_proof(blob)
+    if api.serialize_proof(back) != blob or not api.verify_encryption(
+            vk, back, ct, iv=iv):
+        raise AssertionError("serialization round trip failed")
+    return len(blob)
+
+
+def engines_agree(vk, pk, pk4, message: bytes, ct: bytes, tag: str) -> None:
+    """zk=False proofs of the K3-engine key and the K4-engine key from one
+    seed: equal byte for byte, and verifying."""
+    plain3 = api.encrypt(message, KEY, pk, rng=random.Random(4), zk=False)
+    plain4 = api.encrypt(message, KEY, pk4, rng=random.Random(4), zk=False)
+    blob3, blob4 = api.serialize_proof(plain3), api.serialize_proof(plain4)
+    if blob3 != blob4 or not api.verify_encryption(vk, plain4, ct):
+        raise AssertionError(f"the zk=False proofs of the two engines differ "
+                             f"({tag})")
+    say(f"[{tag}] zk=False proofs on K3 and K4 engines: {len(blob3)} bytes, "
+        f"equal byte for byte, verify")
+
+
 def check_native(pk, dev, label: str) -> None:
-    """K3 (msm) and K4 (msm_device) at up to 2^21 distinct SRS points of
-    the key against the native Pippenger, outside the counted run."""
+    """K3 (msm) and K4 (msm_device) at every SRS point of the key (its
+    degree + 1 distinct points) against the native Pippenger, outside the
+    counted run. The scalars are drawn as numpy limbs (reduced, with the
+    edge scalars 0, 1, r - 1 and R mod r at the end)."""
     packed = pk.marlin_pk.srs.powers_g1.packed
-    n = min(1 << 21, packed.shape[0])
-    f = fr_ops()
-    rnd = random.Random(13)
-    scalars = f.from_ints([rnd.randrange(f.modulus) for _ in range(n)], dev,
-                          mont=False)
+    n = packed.shape[0]
+    scalars = random_elements(fr_ops(), n - 4, np.random.default_rng(13),
+                              dev)
     points = pk._prover.srs_dev.slice(0, n)
     t0 = time.perf_counter()
     got3 = M.msm(points, scalars)
@@ -863,17 +921,17 @@ def flipped(data: bytes, byte: int) -> bytes:
 
 
 def phase_srs() -> None:
-    """The SRS checkpoint of the largest key of the run (32-byte CBC,
-    degree 2^21), generated once: every smaller key truncates it."""
+    """The SRS checkpoint of the largest key of the run (64-byte ECB,
+    degree 2^22), generated once: every smaller key truncates it."""
     t0 = time.perf_counter()
-    tpl = api._template_cached(32, "cbc")
+    tpl = api._template_cached(64, "ecb")
     t1 = time.perf_counter()
     need = api._srs_degree(tpl)
     api._srs_for(need, random.Random(17))
-    say(f"[srs] 32-byte CBC template {t1 - t0:.1f}s "
+    say(f"[srs] 64-byte ECB template {t1 - t0:.1f}s "
         f"({tpl.r1cs.num_constraints} constraints); SRS of degree {need} "
         f"generated and checkpointed in {time.perf_counter() - t1:.1f}s "
-        f"(host, native)")
+        f"(host, native) [{CARD}]")
 
 
 def phase_cbc(dev) -> None:
@@ -902,13 +960,9 @@ def phase_cbc(dev) -> None:
         raise AssertionError("a flipped ciphertext bit still verifies (CBC)")
     if api.verify_encryption(vk, proof, ct, iv=flipped(IV, 3)):
         raise AssertionError("a flipped iv bit still verifies (CBC)")
-    blob = api.serialize_proof(proof)
-    back = api.deserialize_proof(blob)
-    if api.serialize_proof(back) != blob or not api.verify_encryption(
-            vk, back, ct, iv=IV):
-        raise AssertionError("CBC serialization round trip failed")
     say(f"[cbc] proof verifies with its iv; flipped ciphertext bit and "
-        f"flipped iv bit rejected; serialize round trip {len(blob)} bytes")
+        f"flipped iv bit rejected; serialize round trip "
+        f"{round_trip(vk, proof, ct, IV)} bytes")
 
 
 def phase_batch(pk, vk) -> None:
@@ -946,10 +1000,11 @@ def phase_batch(pk, vk) -> None:
 
 
 def phase_32b(dev) -> None:
-    """Two 16-byte CBC blocks, chained (n = 2^19, SRS degree 2^21): the key,
-    a cold and a warm zk proof with stage times, verification, rejection of
-    a flipped ciphertext bit in the second block; then K3 and K4 at 2^21
-    SRS points against the native Pippenger."""
+    """Two 16-byte CBC blocks, chained (n = 2^19, SRS degree 2^21, a
+    prefix of the run's 2^22 checkpoint): the key, a cold and a warm zk
+    proof with stage times, verification, rejection of a flipped ciphertext
+    bit in the second block; then K3 and K4 at the key's 2^21 + 1 SRS
+    points against the native Pippenger."""
     message = bytes(range(32))
     (pk, vk), counts, secs = counted(
         lambda: api.synthesize_keys(32, mode="cbc", device=dev), INDEX_PATH,
@@ -973,6 +1028,74 @@ def phase_32b(dev) -> None:
                              "still verifies")
     say("[32B] proof verifies; flipped bit in the second block rejected")
     check_native(pk, dev, "32B")
+
+
+def gib(nbytes: int) -> str:
+    return f"{nbytes / 2**30:.2f} GiB"
+
+
+def phase_64b(dev) -> None:
+    """Four 16-byte ECB blocks (n = 2^20, largest matrix k = 2^21, round-3
+    cosets and SRS of 2^22, the reference's own SRS capacity): the key, a
+    cold and a warm zk proof on the K3 engine and a warm one on the K4
+    engine with stage times and launches, zk=False proofs of the two
+    engines equal byte for byte, verification, rejection of a flipped bit
+    in the fourth ciphertext block, a serialization round trip, and the
+    card's memory in the index and the proves; then K3 and K4 at the key's
+    2^22 + 1 SRS points against the native Pippenger."""
+    message = bytes(range(64))
+    torch.cuda.reset_peak_memory_stats(dev)
+    (pk, vk), counts, secs = counted(
+        lambda: api.synthesize_keys(64, device=dev), INDEX_PATH,
+        "the 64-byte index")
+    times = ", ".join(f"{k} {v:.1f}s" for k, v in pk.setup_times.items())
+    shapes = (pk.marlin_pk.log_n, max(vk.log_ks), vk.max_degree)
+    say(f"[64B] synthesize_keys(64): {secs:.1f}s ({times}); "
+        f"{pk.template.r1cs.num_constraints} constraints, "
+        f"{pk.template.r1cs.num_instance} instance variables, n=2^{shapes[0]}, "
+        f"k=2^{shapes[1]}, SRS degree {shapes[2]}; launches {counts}; peak "
+        f"device memory {gib(torch.cuda.max_memory_allocated(dev))} [{CARD}]")
+    if shapes != (20, 21, 1 << 22):
+        raise AssertionError(f"the 64-byte key has (log n, log k, degree) "
+                             f"{shapes}, not (20, 21, 2^22)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    proofs = {}
+    for label, seed in (("cold", 9), ("warm", 10)):
+        proofs[label], counts, secs = counted(
+            lambda: api.encrypt(message, KEY, pk, rng=random.Random(seed)),
+            PROVE_PATH, f"the {label} 64-byte prove")
+        if counts["msm_u8"]:
+            raise AssertionError("the K3-engine prove launched K4")
+        say(f"[64B] {label} prove (zk, K3 engine): {secs:.3f}s; stages "
+            f"{stage_text(pk)}; launches {counts} [{CARD}]")
+    pk4, _cold4 = pallas_engine_key(pk, message, "64B")
+    proofs["warm4"], counts, secs = counted(
+        lambda: api.encrypt(message, KEY, pk4, rng=random.Random(11)),
+        ("fr_ops", "ntt", "msm_u8"), "the 64-byte K4-engine prove")
+    if counts["msm"]:
+        raise AssertionError("the 64-byte K4-engine prove launched K3")
+    say(f"[64B] warm prove (zk, K4 engine): {secs:.3f}s; stages "
+        f"{stage_text(pk4)}; launches {counts} [{CARD}]")
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"[64B] device memory: {gib(resident)} allocated before the proves "
+        f"(every key of the run still held), peak {gib(peak)} in them "
+        f"({gib(peak - resident)} above), {gib(torch.cuda.max_memory_reserved(dev))}"
+        f" reserved at most [{CARD}]")
+
+    ct = api.compute_ciphertext(message, KEY)
+    for label, proof in proofs.items():
+        if not api.verify_encryption(vk, proof, ct):
+            raise AssertionError(f"the {label} 64-byte proof does not verify")
+    if api.verify_encryption(vk, proofs["warm"], flipped(ct, 48)):
+        raise AssertionError("a flipped bit of the fourth ciphertext block "
+                             "still verifies")
+    say(f"[64B] the three proofs verify on the host; flipped bit in the "
+        f"fourth block rejected; serialize round trip "
+        f"{round_trip(vk, proofs['warm4'], ct)} bytes")
+    engines_agree(vk, pk, pk4, message, ct, "64B")
+    del pk4
+    check_native(pk, dev, "64B")
 
 
 def build_chain(num_gates: int):
@@ -1080,6 +1203,14 @@ def phase_plonk(dev) -> None:
         f"evaluations equal the host prover's; verifies [{CARD}]")
 
 
+def timed_phase(name: str, fn, *args):
+    """fn(*args), then a line with the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"[seconds] {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def run(smi: str) -> None:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1093,24 +1224,26 @@ def run(smi: str) -> None:
                       "library_ms": None}
                for name, (src, rep) in KERNEL_INFO.items()}
     gen = np.random.default_rng(0)
-    check_field(results, gen, dev, 1 << 20)
-    check_ntt(results, gen, dev, (1, 5, 10, 11, 12, 18, 19, 20, 21))
+    timed_phase("K1", check_field, results, gen, dev, 1 << 20)
+    timed_phase("K2", check_ntt, results, gen, dev,
+                (1, 5, 10, 11, 12, 18, 19, 20, 21, 22))
     t0 = time.perf_counter()
     srs = generate_srs_native((1 << 16) - 1, random.Random(3))
     say(f"[K3] 2^16 test points from the native SRS generator: "
         f"{time.perf_counter() - t0:.1f}s (host)")
     packed = srs.powers_g1.packed
-    check_msm(results, packed, dev)
-    check_msm_u8(results, packed, dev)
-    check_fq_cols(results, gen, dev)
-    time_kernels(results, packed, gen, dev)
-    phase_ntt_mul(results, gen, dev)
-    phase_srs()
-    pk, vk = phase_main_path(results, dev)
-    phase_cbc(dev)
-    phase_batch(pk, vk)
-    phase_32b(dev)
-    phase_plonk(dev)
+    timed_phase("K3", check_msm, results, packed, dev)
+    timed_phase("K4", check_msm_u8, results, packed, dev)
+    timed_phase("K5", check_fq_cols, results, gen, dev)
+    timed_phase("time", time_kernels, results, packed, gen, dev)
+    timed_phase("ntt_mul", phase_ntt_mul, results, gen, dev)
+    timed_phase("srs", phase_srs)
+    pk, vk = timed_phase("main", phase_main_path, results, dev)
+    timed_phase("cbc", phase_cbc, dev)
+    timed_phase("batch", phase_batch, pk, vk)
+    timed_phase("32B", phase_32b, dev)
+    timed_phase("64B", phase_64b, dev)
+    timed_phase("plonk", phase_plonk, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1118,6 +1251,11 @@ def run(smi: str) -> None:
         missing = [k for k in keys if k not in entry]
         if missing:
             raise AssertionError(f"kernel {entry['name']} lacks {missing}")
+        wrong = [k for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                             "bound_ms")
+                 if not isinstance(entry[k], (int, float))]
+        if wrong:
+            raise AssertionError(f"kernel {entry['name']}: {wrong} not numbers")
     say(f"[total] build and every phase: "
         f"{time.perf_counter() - t_start:.0f}s [{CARD}]")
     say(json.dumps({"kernels": [results[k] for k in KERNEL_INFO]}))

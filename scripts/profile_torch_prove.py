@@ -1,15 +1,19 @@
-"""Profile one warm 16-byte prove of the PyTorch port on a CUDA card.
+"""Profile one warm prove of the PyTorch port on a CUDA card.
 
-    python3 scripts/profile_torch_prove.py [--warm 3] [--out FILE]
+    python3 scripts/profile_torch_prove.py [--bytes 16] [--mode ecb]
+        [--warm 3] [--out FILE]
 
-Builds the proving key on the card (`synthesize_keys(16, device="cuda")`,
-cached on disk after the first run), runs `--warm` unprofiled proves, then
+Builds the proving key on the card (`synthesize_keys(BYTES, mode=MODE,
+device="cuda")`, cached on disk after the first run; a CBC key proves with
+a fixed iv), runs `--warm` unprofiled proves of a BYTES-long message, then
 one prove under `torch.profiler` with CPU and CUDA activities. It prints:
 
-- the card's name and power limit (nvidia-smi) and the warm prove seconds;
+- the card's name and power limit (nvidia-smi), the key's shapes and the
+  warm prove seconds;
 - the profiled prove's wall seconds and stage times;
 - device busy seconds (the union of every device kernel and copy interval)
-  and the device's idle share of the prove's wall time;
+  and the device's idle share of the prove's wall time, and the peak
+  device memory in the profiled prove;
 - one `[group]` line per kernel family (K1, K2, each MSM kernel, torch's
   scan and sort kernels, the rest): device ms, launches and share, each
   the sum of the `[kernel]` lines whose names it matches;
@@ -38,7 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from aes_zero_knowledge_proof_circuit_tpu_torch import api  # noqa: E402
 
 KEY = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
-MESSAGE = bytes(range(16))
+IV = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
 # (group, substrings of the device kernel name), first match wins
 GROUPS = (
     ("K1 field_binop, field_pow, batch_inv",
@@ -76,15 +80,19 @@ def busy_us(intervals) -> float:
     return total
 
 
-def prove(pk, seed: int):
+def prove(pk, message: bytes, iv, seed: int):
     t0 = time.perf_counter()
-    proof = api.encrypt(MESSAGE, KEY, pk, rng=random.Random(seed), zk=True)
+    proof = api.encrypt(message, KEY, pk, rng=random.Random(seed), zk=True,
+                        iv=iv)
     torch.cuda.synchronize()
     return proof, time.perf_counter() - t0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bytes", type=int, default=16,
+                    help="message length, a multiple of 16")
+    ap.add_argument("--mode", choices=("ecb", "cbc"), default="ecb")
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
@@ -96,20 +104,24 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
+    message = bytes(i % 256 for i in range(args.bytes))
+    iv = IV if args.mode == "cbc" else None
     t0 = time.perf_counter()
-    pk, vk = api.synthesize_keys(16, device=dev)
-    print(f"synthesize_keys(16): {time.perf_counter() - t0:.1f}s", flush=True)
-    prove(pk, 0)                                  # cold prove
-    warm = [prove(pk, 1 + i)[1] for i in range(args.warm)]
+    pk, vk = api.synthesize_keys(args.bytes, mode=args.mode, device=dev)
+    print(f"synthesize_keys({args.bytes}, mode={args.mode!r}): "
+          f"{time.perf_counter() - t0:.1f}s; n=2^{pk.marlin_pk.log_n}, "
+          f"k=2^{max(vk.log_ks)}, SRS degree {vk.max_degree}", flush=True)
+    prove(pk, message, iv, 0)                     # cold prove
+    warm = [prove(pk, message, iv, 1 + i)[1] for i in range(args.warm)]
     print("warm proves (s): " + ", ".join(f"{s:.3f}" for s in warm)
           + (f"; median {statistics.median(warm):.3f}" if warm else ""))
 
     torch.cuda.reset_peak_memory_stats(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        proof, wall = prove(pk, 100)
-    ct = api.compute_ciphertext(MESSAGE, KEY)
-    if not api.verify_encryption(vk, proof, ct):
+        proof, wall = prove(pk, message, iv, 100)
+    ct = api.compute_ciphertext(message, KEY, iv=iv)
+    if not api.verify_encryption(vk, proof, ct, iv=iv):
         raise AssertionError("the profiled proof does not verify")
     stages = pk._prover.last_stage_times
     print(f"profiled prove: {wall:.3f}s wall, verifies; stages "
