@@ -69,7 +69,7 @@ __all__ = [
 
 log = logging.getLogger(__name__)
 
-TEMPLATE_VERSION = 1
+TEMPLATE_VERSION = 2   # 2: R1CS pickles its running nonzero counts
 INDEX_VERSION = 2   # 2: keys pickle this package's own vk classes
 
 
@@ -114,9 +114,11 @@ def _srs_degree(tpl: Template) -> int:
                                     tpl.r1cs.num_variables, max(na, nb, nc))
 
 
-def _srs_for(need: int, rng) -> kzg.SRS:
+def _srs_for(need: int, rng, device="cuda") -> kzg.SRS:
     """The degree-`need` SRS: the checkpoint, a truncated larger one, or a
-    fresh native generation saved as a checkpoint."""
+    fresh generation saved as a checkpoint (on the card, K6, when `device`
+    is CUDA; else the native ladder on the host: the same SRS from the same
+    rng)."""
     path = CONFIG.srs_dir / f"srs_bls377_v2_d{need}.npz"
     if path.exists():
         log.info("loading SRS checkpoint %s", path)
@@ -133,12 +135,22 @@ def _srs_for(need: int, rng) -> kzg.SRS:
         _d, p = min(larger)
         log.info("truncating SRS checkpoint %s to degree %d", p, need)
         return _srs.truncate_srs(_srs.load_srs(str(p)), need)
-    log.info("generating SRS of degree %d", need)
-    srs = _srs.generate_srs_native(need, rng)
+    log.info("generating SRS of degree %d on %s", need, device)
+    if torch.device(device).type == "cuda":
+        srs = _srs.generate_srs_device(need, rng, device)
+    else:
+        srs = _srs.generate_srs_native(need, rng)
+    _checkpoint_srs(srs)
+    return srs
+
+
+def _checkpoint_srs(srs: kzg.SRS) -> None:
+    """Save `srs` as the checkpoint of its degree (written aside, then
+    renamed into place)."""
+    path = CONFIG.srs_dir / f"srs_bls377_v2_d{srs.max_degree}.npz"
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     save_srs(tmp, srs)
     os.replace(tmp, path)
-    return srs
 
 
 def _srs_digest(srs: kzg.SRS) -> str:
@@ -193,8 +205,9 @@ def synthesize_keys(plaintext_length: int, rng=None, *,
                     device="cuda") -> Tuple[AESProvingKey, MarlinVerifyingKey]:
     """Trusted setup and circuit indexing, with the proving state on
     `device` (the CUDA card by default). The SRS is sized from the template,
-    generated once by the native tier and checkpointed. mode="cbc" chains
-    the blocks on a public 16-byte iv.
+    generated once (on the card for a CUDA device, by the native tier on
+    the host otherwise) and checkpointed. mode="cbc" chains the blocks on a
+    public 16-byte iv.
 
     Everything after `rng` is keyword-only: the JAX package's third
     positional parameter is its backend, so a call written for it fails
@@ -214,7 +227,7 @@ def synthesize_keys(plaintext_length: int, rng=None, *,
     t0 = time.perf_counter()
     caller_srs = srs is not None
     if srs is None:
-        srs = _srs_for(_srs_degree(tpl), rng)
+        srs = _srs_for(_srs_degree(tpl), rng, device)
     times["srs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pk = _indexed_pk_cached(plaintext_length, mode, tpl, srs, device,

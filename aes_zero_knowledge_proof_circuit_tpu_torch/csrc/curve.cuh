@@ -10,8 +10,9 @@
 // needed. An affine input point with x = y = 0 is infinity. Every function
 // is inlined: operands stay in registers.
 //
-// The reduction (`reduce_msm`) turns the partial sums of each bucket into
-// one MSM point:
+// The reduction (`reduce_windows`, then `window_ladder`) turns the partial
+// sums of each bucket into one MSM point; a caller that cuts the windows
+// into groups runs steps 0-3 once a group and the ladder once:
 //   0. `segment_merge`, once per power of two up to the most partial sums a
 //      bucket can have: each bucket's partial sums are joined pairwise, a
 //      tree in place, so a bucket of many partial sums (the top window's
@@ -449,20 +450,6 @@ int reduce_windows(void* partial, const void* merge_prefix,
       (const uint32_t*)partial, (const long long*)first, buckets, slice_log,
       block_log, (uint32_t*)block_sums, (uint32_t*)window_sums,
       (int*)counters);
-  return (int)cudaGetLastError();
-}
-
-// reduce_windows, then window_ladder (window width c) into out: the MSM.
-int reduce_msm(void* partial, const void* merge_prefix, long long n_partial,
-               const void* first, int merge_passes, int windows, int buckets,
-               int c, int slice_log, int block_log, void* block_sums,
-               void* window_sums, void* counters, void* out, cudaStream_t s) {
-  int err = reduce_windows(partial, merge_prefix, n_partial, first,
-                           merge_passes, windows, buckets, slice_log,
-                           block_log, block_sums, window_sums, counters, s);
-  if (err) return err;
-  window_ladder<<<1, 32, 0, s>>>((const uint32_t*)window_sums, windows, c,
-                                 (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -110,18 +110,24 @@ segment_accumulate(const uint32_t* __restrict__ points,
 
 }  // namespace
 
-// Runs the kernels on `stream`. seg_scratch [max(1, n_segs), 4, 12];
-// first: [W*B + 1] segment offsets of bucket w*B + b - 1; merge_prefix,
-// merge_passes, block_sums, window_sums, counters (zeroed) and out as
-// reduce_msm takes them; out: the MSM as one XYZZ point [4, 12] in
-// Montgomery form.
+// Runs the kernels on `stream` over the sorted pairs of one group of
+// `windows` windows. seg_scratch [max(1, n_segs), 4, 12]; first: [W*B + 1]
+// segment offsets of bucket w*B + b - 1 (w the group's own window index);
+// merge_prefix, merge_passes, block_sums and counters (zeroed) as
+// reduce_windows takes them; window_sums: the group's [windows, 4, 12] rows
+// of the MSM's window sums. When ladder_windows > 0 (the last group), the
+// ladder then runs over all_sums, the MSM's [ladder_windows, 4, 12] window
+// sums, into out: the MSM as one XYZZ point [4, 12] in Montgomery form. A
+// single group is the whole MSM: window_sums = all_sums, ladder_windows =
+// windows.
 extern "C" int zk_msm_g1(const void* points, const void* idx, const void* neg,
                          const void* seg_lo, const void* seg_hi,
                          const void* merge_prefix, long long n_segs,
                          const void* first, int merge_passes, int windows,
                          int buckets, int c, int slice_log, int block_log,
                          void* seg_scratch, void* block_sums,
-                         void* window_sums, void* counters, void* out,
+                         void* window_sums, void* counters,
+                         const void* all_sums, int ladder_windows, void* out,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_segs > 0) {
@@ -133,7 +139,11 @@ extern "C" int zk_msm_g1(const void* points, const void* idx, const void* neg,
     int err = (int)cudaGetLastError();
     if (err) return err;
   }
-  return reduce_msm(seg_scratch, merge_prefix, n_segs, first, merge_passes,
-                    windows, buckets, c, slice_log, block_log, block_sums,
-                    window_sums, counters, out, s);
+  int err = reduce_windows(seg_scratch, merge_prefix, n_segs, first,
+                           merge_passes, windows, buckets, slice_log,
+                           block_log, block_sums, window_sums, counters, s);
+  if (err || ladder_windows <= 0) return err;
+  window_ladder<<<1, 32, 0, s>>>((const uint32_t*)all_sums, ladder_windows, c,
+                                 (uint32_t*)out);
+  return (int)cudaGetLastError();
 }

@@ -315,23 +315,29 @@ window_pairs(const uint32_t* __restrict__ window_sums,
 
 }  // namespace
 
-// Runs the affine levels and the reduction on `stream`. points: [N, 2, 12]
-// affine Montgomery (x = y = 0 for infinity); idx: [P] int32 point index of
-// each sorted pair of a nonzero digit; first: [levels + 1, W*256 + 1] int64
-// offsets of each bucket's partials at each level (row 0: its pairs);
-// geometry: HOST [levels, 3] int64 (items, chunk, threads) of each level;
-// buf0, buf1: affine scratch of at least items(0) and items(1) rows (levels
-// 0, 2, ... and 1, 3, ... but the last write there); partial:
+// Runs the affine levels and the reduction on `stream` for one group of
+// `windows` windows. points: [N, 2, 12] affine Montgomery (x = y = 0 for
+// infinity); idx: [P] int32 point index of each sorted pair of a nonzero
+// digit; first: [levels + 1, W*256 + 1] int64 offsets of each bucket's
+// partials at each level (row 0: its pairs; w the group's own window
+// index); geometry: HOST [levels, 3] int64 (items, chunk, threads) of each
+// level; buf0, buf1: affine scratch of at least items(0) and items(1) rows
+// (levels 0, 2, ... and 1, 3, ... but the last write there); partial:
 // [max(1, items(levels - 1)), 4, 12] XYZZ; merge_prefix, merge_passes,
-// block_sums (at least windows / 2 rows), window_sums, counters (zeroed)
-// as reduce_windows takes them over the last row of first; out: the MSM as
-// one XYZZ point [4, 12] in Montgomery form.
+// block_sums, counters (zeroed) as reduce_windows takes them over the last
+// row of first; window_sums: the group's [windows, 4, 12] rows of the MSM's
+// window sums. When ladder_windows > 0 (the last group), the window pairs
+// and the ladder then run over all_sums, the MSM's [ladder_windows, 4, 12]
+// window sums (block_sums must then hold ladder_windows / 2 rows), into
+// out: the MSM as one XYZZ point [4, 12] in Montgomery form. A single
+// group is the whole MSM: window_sums = all_sums, ladder_windows = windows.
 extern "C" int zk_msm_u8(const void* points, const void* idx, const void* first,
                          int windows, int levels, const void* geometry,
                          void* buf0, void* buf1, void* partial,
                          const void* merge_prefix, int merge_passes,
                          int slice_log, int block_log, void* block_sums,
-                         void* window_sums, void* counters, void* out,
+                         void* window_sums, void* counters,
+                         const void* all_sums, int ladder_windows, void* out,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int buckets = 256;
@@ -357,13 +363,13 @@ extern "C" int zk_msm_u8(const void* points, const void* idx, const void* first,
                            fst + (long long)levels * (nb + 1), merge_passes,
                            windows, buckets, slice_log, block_log, block_sums,
                            window_sums, counters, s);
-  if (err) return err;
+  if (err || ladder_windows <= 0) return err;
   // the window pairs go to block_sums, which bucket_reduce is done with
-  window_pairs<<<windows / 2, 32, 0, s>>>((const uint32_t*)window_sums,
-                                          (uint32_t*)block_sums);
+  window_pairs<<<ladder_windows / 2, 32, 0, s>>>((const uint32_t*)all_sums,
+                                                 (uint32_t*)block_sums);
   err = (int)cudaGetLastError();
   if (err) return err;
-  window_ladder<<<1, 32, 0, s>>>((const uint32_t*)block_sums, windows / 2,
-                                 16, (uint32_t*)out);
+  window_ladder<<<1, 32, 0, s>>>((const uint32_t*)block_sums,
+                                 ladder_windows / 2, 16, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -44,10 +44,11 @@ _SIGNATURES = {
     "zk_batch_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
     "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "zk_msm_g1": [_P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
-                  _P, _P, _P, _P, _P, _P],
+                  _P, _P, _P, _P, _P, _I, _P, _P],
     "zk_msm_u8": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                  _P, _P, _P, _P],
+                  _P, _P, _P, _I, _P, _P],
     "zk_fq_cols_mul": [_P, _P, _P, _LL, _P],
+    "zk_srs_fixed_base": [_P, _P, _LL, _P, _P],
 }
 
 
@@ -222,6 +223,7 @@ ntt_pass = Kernel("zk_ntt_pass")
 msm_g1 = Kernel("zk_msm_g1")
 msm_u8 = Kernel("zk_msm_u8")
 fq_cols_mul = Kernel("zk_fq_cols_mul")
+srs_fixed_base = Kernel("zk_srs_fixed_base")
 
 KERNELS: Dict[str, tuple] = {
     "fr_ops": (field_mul, field_add, field_sub, field_pow, batch_inv),
@@ -229,6 +231,7 @@ KERNELS: Dict[str, tuple] = {
     "msm": (msm_g1,),
     "msm_u8": (msm_u8,),
     "fq_cols": (fq_cols_mul,),
+    "srs": (srs_fixed_base,),
 }
 
 

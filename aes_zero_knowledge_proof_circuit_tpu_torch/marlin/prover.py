@@ -48,6 +48,9 @@ if TYPE_CHECKING:
 F = fr_ops()
 L = F.L
 RAND_BYTES = 34   # prover_jax._rand_mont draws one 34-byte value per element
+# bytes one randbytes call draws: it takes fewer than 2^31 bits, and whole
+# 32-bit words, so that the chunks join into the bytes of one call
+RAND_CHUNK = 1 << 27
 
 log = logging.getLogger(__name__)
 
@@ -111,8 +114,13 @@ def _sparse_ints(positions: Sequence[int], values: Sequence[int],
 
 def _rand_mont(rng: _random.Random, n: int, device) -> torch.Tensor:
     """n uniform field elements: each a 34-byte little-endian draw reduced
-    mod r (the draw of prover_jax._rand_mont), as V_lo R + V_hi R^2."""
-    raw = np.frombuffer(rng.randbytes(n * RAND_BYTES), np.uint8)
+    mod r (the draw of prover_jax._rand_mont), as V_lo R + V_hi R^2. The
+    bytes come in chunks of RAND_CHUNK (one call cannot draw the 2^25 + 1
+    elements of a 1 KB proof's mask), equal to one call's bytes."""
+    total = n * RAND_BYTES
+    raw = np.frombuffer(b"".join(
+        rng.randbytes(min(RAND_CHUNK, total - i))
+        for i in range(0, total, RAND_CHUNK)), np.uint8)
     raw = raw.reshape(n, RAND_BYTES)
     lo = np.ascontiguousarray(raw[:, :32]).view("<u4").view(np.int32)
     hi = np.zeros((n, L), np.int32)
@@ -148,16 +156,21 @@ def coo_arrays(r1cs):
 
 
 class _StageTimer:
-    """Per-stage wall times of one prove (synchronized on CUDA)."""
+    """Per-stage wall times of one prove (synchronized on CUDA) and, on
+    CUDA, the device memory at each stage's end: (bytes allocated, the
+    allocator's peak so far)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.times: dict = {}
+        self.memory: dict = {}
         self._t0 = _time.perf_counter()
 
     def mark(self, stage: str) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            self.memory[stage] = (torch.cuda.memory_allocated(self.device),
+                                  torch.cuda.max_memory_allocated(self.device))
         now = _time.perf_counter()
         self.times[stage] = now - self._t0
         log.info("prover stage %-18s %.3fs", stage, now - self._t0)
@@ -185,6 +198,7 @@ class TorchProver:
             points = device_powers(pk.srs, dev)
         self.srs_dev = DevicePoints(points)
         self.last_stage_times: dict = {}
+        self.last_stage_memory: dict = {}
 
         coo = getattr(pk, "coo_np", None) or coo_arrays(pk.r1cs)
         self.coo = [tuple(torch.as_tensor(np.asarray(a, np.int64), device=dev)
@@ -338,6 +352,7 @@ class TorchProver:
             slots.append(md["col_slots"])
         t_vals = P.segment_sum_mod(torch.cat(contribs), torch.cat(slots), n)
         t_coeffs = P.intt(log_n, t_vals)
+        del contribs, slots, t_vals
 
         w_vx = P.sub(torch.cat([P.zeros(x_size, dev), w_hat]), w_hat)
         z_coeffs = P.add(w_vx, x_poly)
@@ -353,9 +368,14 @@ class TorchProver:
         q_acc = F.add(P.ntt_to(log_n4, s_coeffs), F.mul(r4, p4))
         tz4 = F.mul(P.ntt_to(log_n4, t_coeffs), P.ntt_to(log_n4, z_coeffs))
         q1 = P.intt(log_n4, F.sub(q_acc, tz4))
+        # the 4n-row temporaries go before the commits (2 GiB each at n =
+        # 2^24)
+        del denom4, r4, za4, zb4, p4, q_acc, tz4, w_vx, z_coeffs
         h1_coeffs, rem = P.div_vanishing(q1, n)
-        # deg h1 <= 2n + 1: the rows beyond are structurally zero
-        h1_coeffs = h1_coeffs[: min(h1_coeffs.shape[0], 2 * n + 2)]
+        del q1
+        # deg h1 <= 2n + 1: the rows beyond are structurally zero (a copy,
+        # so that the 4n-row quotient buffer goes)
+        h1_coeffs = h1_coeffs[: min(h1_coeffs.shape[0], 2 * n + 2)].clone()
         g1_coeffs = rem[1:]
         g1_shift = d_max - (n - 2)
         st.mark("r2_polys")
@@ -405,6 +425,10 @@ class TorchProver:
                                  dev).repeat(k, 1)
             h2 = P.intt_coset(log_k2, F.mul(F.sub(a2, bf2), vk_inv),
                               g_cos)[: 2 * k - 2]
+            # only g2 and h2 outlive the matrix: its cosets (2k rows each)
+            # go before the next one's are made
+            del (row_evals, col_evals, val_norm, b_vals, f_vals, f_coeffs,
+                 a_coeffs, u2, v2, bf2, a2, vk_inv)
             g2_shifts.append(d_max - (k - 2))
             g2_list.append(g2)
             h2_list.append(h2)
@@ -460,6 +484,7 @@ class TorchProver:
         open_beta2 = self._batch_open(beta2_polys, beta2, xi2)
         st.mark("open_beta2")
         self.last_stage_times = st.times
+        self.last_stage_memory = st.memory
 
         return MarlinProof(
             comm_w=comm_w, comm_za=comm_za, comm_zb=comm_zb, comm_s=comm_s,

@@ -64,6 +64,13 @@ class R1CS:
     a_rows: List[LC] = field(default_factory=list)
     b_rows: List[LC] = field(default_factory=list)
     c_rows: List[LC] = field(default_factory=list)
+    # nonzeros of A, B and C: counted here for the rows given, then added
+    # to by enforce (a row never changes once enforced)
+    counts: List[int] = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.counts = [sum(len(r) for r in rows)
+                       for rows in (self.a_rows, self.b_rows, self.c_rows)]
 
     # -- construction -------------------------------------------------------
 
@@ -86,6 +93,9 @@ class R1CS:
         self.a_rows.append(a)
         self.b_rows.append(b)
         self.c_rows.append(c)
+        self.counts[0] += len(a)
+        self.counts[1] += len(b)
+        self.counts[2] += len(c)
 
     @property
     def num_constraints(self) -> int:
@@ -123,11 +133,9 @@ class R1CS:
     # -- inspection / execution --------------------------------------------
 
     def nnz(self) -> Tuple[int, int, int]:
-        return (
-            sum(len(r) for r in self.a_rows),
-            sum(len(r) for r in self.b_rows),
-            sum(len(r) for r in self.c_rows),
-        )
+        """Nonzeros of A, B and C, kept as rows are enforced: the template's
+        per-round status log stays linear in the circuit's size."""
+        return tuple(self.counts)
 
     def matrices_coo(self):
         """(rows, cols, vals) int arrays per matrix; vals as Python ints."""

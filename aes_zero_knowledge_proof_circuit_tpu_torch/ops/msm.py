@@ -12,6 +12,14 @@ the window Horner ladder) down to the MSM as one XYZZ point [4, 12] that
 stays on the device. The host reads points only when it needs them
 (`xyzz_to_affine`): `msm` once per MSM, the prover once per batch of MSMs.
 
+The digits, sort and segments of a window take about PAIR_BYTES a point on
+the device, so `msm_point` cuts the windows into consecutive groups of at
+most GROUP_BYTES (`window_groups`): each group's digits are sorted and
+summed into its rows of the window sums, and the last group's launch runs
+the ladder over all of them. Up to 2^22 points the 20 windows are one
+group; at 2^26 they are seven groups of three (the last of two), at the
+2^26 + 1 points of a 1 KB key's whole SRS ten groups of two.
+
 The plain version (`plain_bucket_msm`) sums each bucket with the plain
 curve formulas of ops/curve.py (pairwise trees), then runs the kernel's
 reduction step for step (`plain_window_sums`: the same slices, offset
@@ -22,7 +30,7 @@ would cost milliseconds each).
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +47,16 @@ SCALAR_BITS = 253
 MAX_WINDOW_BITS = 13
 SEGMENT = 32          # most sorted pairs one K3 thread adds in sequence
 PLAIN_PAIRS = 1 << 23  # sorted pairs the plain version sums at once
+# device bytes the windows of one group may take: one group up to 2^22
+# points on both engines (as before groups existed), and 11.7 GiB for a
+# 2^26-point K3 MSM's own buffers, against 18.5 at a 20 GiB budget, at no
+# measured cost in time (scripts/reckon_1kb.py on an H100)
+GROUP_BYTES = 12 << 30
+# device bytes a (window, point) pair takes while its group is summed: the
+# measured peak of one msm_point over its 20 N pairs was 63.5 B a pair at
+# 2^22 and 2^24 on an H100 (scripts/reckon_1kb.py): digits, sort keys and
+# order, idx and neg, segment bounds and segment sums
+PAIR_BYTES = 64
 
 
 def window_bits(n: int) -> int:
@@ -68,21 +86,38 @@ def points_from_packed(packed: np.ndarray, device) -> torch.Tensor:
     return mont
 
 
-def signed_digits(scalars: torch.Tensor, c: int):
-    """[n, 8] standard Fr limbs -> (magnitudes [W, n] int64 in [0, 2^(c-1)],
-    negative [W, n] bool): s = sum_i d_i 2^(c i), d_i in [-2^(c-1), 2^(c-1)]
-    (counterpart of msm_mxu.signed_digits)."""
-    v = to_u32(scalars)
+def window_groups(windows: int, n: int, pair_bytes: int,
+                  budget: int) -> List[Tuple[int, int]]:
+    """Consecutive groups [w0, w1) of the windows of an n-point MSM whose
+    pairs, at pair_bytes each, take at most `budget` bytes (one window a
+    group at least): every window lies in exactly one group."""
+    per = max(1, budget // max(1, n * pair_bytes))
+    return [(w0, min(windows, w0 + per)) for w0 in range(0, windows, per)]
+
+
+def _limb(scalars: torch.Tensor, j: int) -> torch.Tensor:
+    """Limb j of [n, 8] Fr limbs as unsigned int64 (0 past the top)."""
+    if j >= scalars.shape[1]:
+        return torch.zeros(scalars.shape[0], dtype=torch.int64,
+                           device=scalars.device)
+    return scalars[:, j].to(torch.int64) & 0xFFFFFFFF
+
+
+def digit_windows(scalars: torch.Tensor, c: int):
+    """Yield each window's (magnitude [n] int64 in [0, 2^(c-1)], negative
+    [n] bool), lowest first: s = sum_i d_i 2^(c i), d_i in [-2^(c-1),
+    2^(c-1)] (counterpart of msm_mxu.signed_digits). Only the carry passes
+    from one window to the next, so a group of windows needs no other's
+    digits."""
     half, full = 1 << (c - 1), 1 << c
     w_count = n_windows(c)
-    mags, negs = [], []
-    carry = torch.zeros_like(v[:, 0])
+    carry = torch.zeros(scalars.shape[0], dtype=torch.int64,
+                        device=scalars.device)
     for i in range(w_count):
-        bit = c * i
-        j, off = bit // 32, bit % 32
-        w = v[:, j] >> off if j < 8 else torch.zeros_like(v[:, 0])
+        j, off = divmod(c * i, 32)
+        w = _limb(scalars, j) >> off
         if off + c > 32 and j + 1 < 8:
-            w = w | (v[:, j + 1] << (32 - off))
+            w = w | (_limb(scalars, j + 1) << (32 - off))
         t = (w & (full - 1)) + carry
         if i == w_count - 1:
             neg = torch.zeros_like(t, dtype=torch.bool)
@@ -90,27 +125,32 @@ def signed_digits(scalars: torch.Tensor, c: int):
             neg = t >= half
         d = torch.where(neg, full - t, t)
         carry = neg.to(torch.int64)
-        mags.append(d)
-        negs.append(neg & (d != 0))
+        yield d, neg & (d != 0)
+
+
+def signed_digits(scalars: torch.Tensor, c: int):
+    """[n, 8] standard Fr limbs -> (magnitudes [W, n] int64 in [0, 2^(c-1)],
+    negative [W, n] bool) of every window (`digit_windows`)."""
+    mags, negs = zip(*digit_windows(scalars, c))
     return torch.stack(mags), torch.stack(negs)
 
 
 def bucket_runs(mags: torch.Tensor, negs: torch.Tensor, buckets: int):
     """Sort the (window, point) pairs by bucket: returns the point index
     (int32) and sign (uint8) of each sorted pair and the [W*(B+1)+1] int64
-    run offsets of bucket b of window w at w*(B+1)+b."""
+    run offsets of bucket b of window w at w*(B+1)+b. The sort key
+    w*(B+1)+b is int32 (W (B + 1) < 2^31)."""
     w_count, n = mags.shape
-    key = (torch.arange(w_count, device=mags.device)[:, None] * (buckets + 1)
-           + mags).reshape(-1)
-    order = torch.argsort(key)
+    dev = mags.device
+    key = (torch.arange(w_count, dtype=torch.int32, device=dev)[:, None]
+           * (buckets + 1) + mags.to(torch.int32)).reshape(-1)
+    keys, order = torch.sort(key)
+    del key
     idx = (order % n).to(torch.int32)
     neg = negs.reshape(-1)[order].to(torch.uint8)
-    counts = torch.zeros(w_count * (buckets + 1), dtype=torch.int64,
-                         device=mags.device).index_add_(
-        0, key, torch.ones_like(key))
-    offsets = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
-                          device=mags.device)
-    offsets[1:] = torch.cumsum(counts, dim=0)
+    del order
+    offsets = torch.searchsorted(keys, torch.arange(
+        w_count * (buckets + 1) + 1, dtype=torch.int32, device=dev))
     return idx, neg, offsets
 
 
@@ -159,53 +199,71 @@ def _check_points(points: torch.Tensor) -> None:
                          f"{tuple(points.shape)} {points.dtype}")
 
 
-def reduce_scratch(windows: int, buckets: int, device):
-    """(block_sums, window_sums, counters, out) for one reduction launch;
-    the counters start at zero."""
+def reduce_scratch(windows: int, buckets: int, device, rows: int = 0):
+    """(block_sums, counters, out) for one reduction launch over `windows`
+    windows; block_sums has at least `rows` rows, and the counters start at
+    zero."""
     slice_log, block_log = reduce_geometry(buckets)
     bpw = buckets >> (slice_log + block_log)
     empty = lambda *shape: torch.empty(shape, dtype=torch.int32,
                                        device=device)
-    return (empty(windows * bpw, 4, FQ.L), empty(windows, 4, FQ.L),
+    return (empty(max(rows, windows * bpw), 4, FQ.L),
             torch.zeros(windows, dtype=torch.int32, device=device),
             empty(4, FQ.L))
 
 
 def bucket_msm(points: torch.Tensor, idx: torch.Tensor, neg: torch.Tensor,
-               offsets: torch.Tensor, windows: int, buckets: int, c: int):
-    """K3 wrapper: (the MSM sum_w 2^(c w) S_w as one XYZZ point [4, 12],
-    the window sums S_w = sum_b b B_w,b as [W, 4, 12] XYZZ), Montgomery Fq.
-    Plain version on CPU tensors, the kernel on CUDA."""
+               offsets: torch.Tensor, windows: int, buckets: int, c: int,
+               wsums: Optional[torch.Tensor] = None, first: int = 0,
+               ladder: bool = True):
+    """K3 wrapper over the sorted pairs of `windows` windows: their window
+    sums S_w = sum_b b B_w,b go to rows first .. first + windows of `wsums`
+    ([W, 4, 12] XYZZ, the whole MSM's; made here, W = windows, when None),
+    and with `ladder` the MSM sum_w 2^(c w) S_w over all W rows follows.
+    Returns (the MSM as one XYZZ point [4, 12], or None without `ladder`;
+    wsums), Montgomery Fq. Plain version on CPU tensors, the kernel on
+    CUDA."""
     _check_points(points)
     if offsets.shape[0] != windows * (buckets + 1) + 1:
         raise ValueError("offsets do not match windows x buckets")
+    if wsums is None:
+        wsums = torch.empty((windows, 4, FQ.L), dtype=torch.int32,
+                            device=points.device)
+    if wsums.shape[1:] != (4, FQ.L) or not 0 <= first <= \
+            wsums.shape[0] - windows or wsums.device != points.device:
+        raise ValueError(f"window sums {tuple(wsums.shape)} on "
+                         f"{wsums.device} cannot take windows {first} .. "
+                         f"{first + windows}")
     if points.device.type == "cpu":
         return plain_bucket_msm(points, idx, neg, offsets, windows, buckets,
-                                c)
+                                c, wsums, first, ladder)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
     for t, dt in ((idx, torch.int32), (neg, torch.uint8),
                   (offsets, torch.int64)):
         if t.dtype != dt or t.device != points.device or not t.is_contiguous():
             raise ValueError(f"bad MSM run tensor {t.dtype} on {t.device}")
+    if not wsums.is_contiguous():
+        raise ValueError("window sums must be contiguous")
     points = points.contiguous()
-    seg_lo, seg_hi, _owner, first = _segments(offsets, windows, buckets,
-                                              idx.shape[0])
+    seg_lo, seg_hi, _owner, seg_first = _segments(offsets, windows, buckets,
+                                                  idx.shape[0])
     slice_log, block_log = reduce_geometry(buckets)
     seg_scratch = torch.empty((max(1, seg_lo.shape[0]), 4, FQ.L),
                               dtype=torch.int32, device=points.device)
-    block_sums, wsums, counters, out = reduce_scratch(windows, buckets,
-                                                      points.device)
+    block_sums, counters, out = reduce_scratch(windows, buckets,
+                                               points.device)
     # a bucket holds at most the n pairs of its window
     passes = merge_passes(-(-(idx.shape[0] // windows) // SEGMENT))
-    prefix = merge_plan(first, passes)
+    prefix = merge_plan(seg_first, passes)
     kernels.msm_g1(points.data_ptr(), idx.data_ptr(), neg.data_ptr(),
                    seg_lo.data_ptr(), seg_hi.data_ptr(), prefix.data_ptr(),
-                   seg_lo.shape[0], first.data_ptr(), passes, windows,
+                   seg_lo.shape[0], seg_first.data_ptr(), passes, windows,
                    buckets, c, slice_log, block_log, seg_scratch.data_ptr(),
-                   block_sums.data_ptr(), wsums.data_ptr(),
-                   counters.data_ptr(), out.data_ptr())
-    return out, wsums
+                   block_sums.data_ptr(), wsums[first].data_ptr(),
+                   counters.data_ptr(), wsums.data_ptr(),
+                   wsums.shape[0] if ladder else 0, out.data_ptr())
+    return (out if ladder else None), wsums
 
 
 def _segments(offsets: torch.Tensor, windows: int, buckets: int,
@@ -358,18 +416,29 @@ def plain_horner(wsums: torch.Tensor, c: int) -> AffinePoint:
     return acc
 
 
-def plain_reduce(bsum, windows: int, buckets: int, c: int):
-    """(MSM point [4, 12], window sums [W, 4, 12]) from the bucket totals,
-    both XYZZ, as the kernel's reduction returns them."""
-    wsums = jac_to_xyzz(plain_window_sums(bsum, windows, buckets))
+def plain_reduce(bsum, windows: int, buckets: int, c: int,
+                 wsums: Optional[torch.Tensor] = None, first: int = 0,
+                 ladder: bool = True):
+    """(MSM point [4, 12] or None, window sums [W, 4, 12]) from the bucket
+    totals of `windows` windows, both XYZZ, as the kernel's reduction
+    returns them: the group's sums land in rows first .. first + windows
+    of `wsums` (made here when None) and `ladder` runs over all rows."""
+    group = jac_to_xyzz(plain_window_sums(bsum, windows, buckets))
+    if wsums is None:
+        wsums = group
+    else:
+        wsums[first:first + windows] = group
+    if not ladder:
+        return None, wsums
     return affine_to_xyzz(plain_horner(wsums, c), wsums.device), wsums
 
 
 def plain_bucket_msm(points, idx, neg, offsets, windows: int, buckets: int,
-                     c: int):
+                     c: int, wsums: Optional[torch.Tensor] = None,
+                     first: int = 0, ladder: bool = True):
     """Plain version of K3: bucket totals, then the kernel's reduction."""
     bsum = plain_bucket_sums(points, idx, neg, offsets, windows, buckets)
-    return plain_reduce(bsum, windows, buckets, c)
+    return plain_reduce(bsum, windows, buckets, c, wsums, first, ladder)
 
 
 # -- top level ------------------------------------------------------------------
@@ -385,10 +454,18 @@ def msm_point(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{points.shape[0]} points < {n} scalars")
     c = window_bits(n)
     buckets = 1 << (c - 1)
-    mags, negs = signed_digits(scalars, c)
-    idx, neg, offsets = bucket_runs(mags, negs, buckets)
-    return bucket_msm(points[:n], idx, neg, offsets, mags.shape[0], buckets,
-                      c)[0]
+    w_count = n_windows(c)
+    digits = digit_windows(scalars, c)
+    wsums = torch.empty((w_count, 4, FQ.L), dtype=torch.int32,
+                        device=points.device)
+    for w0, w1 in window_groups(w_count, n, PAIR_BYTES, GROUP_BYTES):
+        mags, negs = zip(*(next(digits) for _ in range(w0, w1)))
+        runs = bucket_runs(torch.stack(mags), torch.stack(negs), buckets)
+        del mags, negs
+        out, _ = bucket_msm(points[:n], *runs, w1 - w0, buckets, c, wsums,
+                            w0, ladder=w1 == w_count)
+        del runs
+    return out
 
 
 def msm(points: torch.Tensor, scalars: torch.Tensor) -> AffinePoint:

@@ -4,7 +4,10 @@
              (x = y = 0 marks infinity), from `points_from_packed`
     digits16 [n, 16] int32: standard-form scalars as 16-bit limbs
 
-Stages, as in the JAX module, for all 32 windows at once:
+Stages, as in the JAX module, for a group of the 32 windows at a time
+(all 32 at once up to 2^22 points; `window_groups` of ops/msm.py at
+PAIR_BYTES a pair keeps a group within GROUP_BYTES, so 2^25 points run in
+groups of four), the last group's launch joining every window:
 
 1. `window_digits`: 32 unsigned 8-bit windows taken from the 16 limbs,
    least significant first (`_window_digits`).
@@ -51,12 +54,14 @@ import torch
 from .. import kernels
 from . import curve
 from .field import fq_ops
+from . import msm
 from .msm import (
     merge_passes,
     merge_plan,
     plain_reduce,
     reduce_geometry,
     reduce_scratch,
+    window_groups,
 )
 
 FQ = fq_ops()
@@ -67,18 +72,24 @@ LEVEL_BLOCK = 512        # threads of a K4 level block (csrc/msm_u8.cu)
 LANES = 1 << 16          # most threads one affine level runs on
 MIN_CHUNK = 4            # fewest adds a thread for a level past the first
 PLAIN_ITEMS = 1 << 22    # adds the plain version computes at once
+# device bytes a (window, point) pair takes in one MSM: the measured peak of
+# one msm_device_point over its 32 N pairs was 82 B a pair at 2^22 and 2^24
+# on an H100 (scripts/reckon_1kb.py), most of it the level buffers (48 B and
+# 24 B a pair) and the sort
+PAIR_BYTES = 82
 KINDS = ("copy", "add", "dbl", "cancel")
 
 
-def window_digits(digits16: torch.Tensor) -> torch.Tensor:
-    """[n, 16] 16-bit limbs -> [32, n] uint8 window digits; window 2l + h
-    is bits [16 l + 8 h, 16 l + 8 h + 8) of the scalar."""
+def window_digits(digits16: torch.Tensor, w0: int = 0,
+                  w1: int = WINDOWS) -> torch.Tensor:
+    """[n, 16] 16-bit limbs -> [w1 - w0, n] uint8 digits of windows w0 ..
+    w1; window 2l + h is bits [16 l + 8 h, 16 l + 8 h + 8) of the scalar."""
     if digits16.dim() != 2 or digits16.shape[1] != WINDOWS // 2:
         raise ValueError(f"digits must be [n, 16] 16-bit limbs, got "
                          f"{tuple(digits16.shape)}")
-    d = digits16.to(torch.int32)
-    both = torch.stack([d & 0xFF, (d >> 8) & 0xFF], dim=-1)
-    return both.reshape(d.shape[0], WINDOWS).T.to(torch.uint8).contiguous()
+    return torch.stack([(digits16[:, w // 2].to(torch.int32)
+                         >> (8 * (w % 2))) & 0xFF for w in range(w0, w1)]
+                       ).to(torch.uint8)
 
 
 @dataclass
@@ -92,6 +103,8 @@ class Landing:
     geometry: np.ndarray      # [levels, 3] int64 (adds, chunk, threads)
     merge_passes: int         # XYZZ merge levels after the affine ones
     merge_prefix: torch.Tensor  # [merge_passes, W*B + 1] int64 (merge_plan)
+    w0: int = 0               # the group's windows: w0 .. w0 + windows
+    windows: int = WINDOWS
 
 
 def level_geometry(items: int, lanes: int):
@@ -102,23 +115,31 @@ def level_geometry(items: int, lanes: int):
     return chunk, blocks * LEVEL_BLOCK
 
 
-def land(digits16: torch.Tensor, lanes: Optional[int] = None) -> Landing:
-    """Window digits, the per-window sort and the tree levels' offsets."""
+def land(digits16: torch.Tensor, lanes: Optional[int] = None,
+         w0: int = 0, w1: int = WINDOWS) -> Landing:
+    """Window digits, the per-window sort and the tree levels' offsets of
+    windows w0 .. w1 (bucket (w - w0) * 256 + d - 1)."""
     n = digits16.shape[0]
     lanes = lanes or LANES
     if lanes < 1:
         raise ValueError(f"lanes must be positive, got {lanes}")
+    if not 0 <= w0 < w1 <= WINDOWS:
+        raise ValueError(f"bad window group {w0} .. {w1}")
     dev = digits16.device
-    nb = WINDOWS * BUCKETS
-    ds, order = torch.sort(window_digits(digits16), dim=1, stable=True)
+    windows = w1 - w0
+    nb = windows * BUCKETS
+    ds, order = torch.sort(window_digits(digits16, w0, w1), dim=1,
+                           stable=True)
     idx = order[ds > 0].to(torch.int32)
+    del order
     # where each nonzero digit's run starts in the sorted rows, then the
     # run lengths: bucket w * B + d - 1 holds m[w, d - 1] pairs
     digits = torch.arange(1, BUCKETS, dtype=torch.uint8, device=dev)
-    starts = torch.searchsorted(ds, digits.expand(WINDOWS, -1).contiguous())
-    m = torch.zeros((WINDOWS, BUCKETS), dtype=torch.int64, device=dev)
+    starts = torch.searchsorted(ds, digits.expand(windows, -1).contiguous())
+    del ds
+    m = torch.zeros((windows, BUCKETS), dtype=torch.int64, device=dev)
     m[:, :-1] = torch.diff(starts, dim=1, append=torch.full(
-        (WINDOWS, 1), n, dtype=torch.int64, device=dev))
+        (windows, 1), n, dtype=torch.int64, device=dev))
     m = m.reshape(-1)
     # partials of every bucket at each level, up to one a bucket (m <= n)
     top_level = max(1, (n - 1).bit_length())
@@ -136,22 +157,35 @@ def land(digits16: torch.Tensor, lanes: Optional[int] = None) -> Landing:
     passes = merge_passes(most[levels])
     return Landing(idx=idx, first=first, lanes=lanes, levels=levels,
                    geometry=geometry, merge_passes=passes,
-                   merge_prefix=merge_plan(first[levels], passes))
+                   merge_prefix=merge_plan(first[levels], passes), w0=w0,
+                   windows=windows)
 
 
 # -- K4 and its plain version ---------------------------------------------------
 
 
-def scan_msm(points: torch.Tensor, plan: Landing):
-    """K4 wrapper: (the MSM sum_w 2^(8 w) S_w as one XYZZ point [4, 12], the
-    window sums S_w = sum_d d B_w,d as [32, 4, 12] XYZZ), Montgomery Fq.
-    Plain version on CPU tensors, the kernel on CUDA."""
+def scan_msm(points: torch.Tensor, plan: Landing,
+             wsums: Optional[torch.Tensor] = None, ladder: bool = True):
+    """K4 wrapper over the landing of one group of windows: their window
+    sums S_w = sum_d d B_w,d go to rows plan.w0 .. plan.w0 + plan.windows
+    of `wsums` ([32, 4, 12] XYZZ, the whole MSM's; made here when None),
+    and with `ladder` the MSM sum_w 2^(8 w) S_w over all 32 rows follows.
+    Returns (the MSM as one XYZZ point [4, 12], or None without `ladder`;
+    wsums), Montgomery Fq. Plain version on CPU tensors, the kernel on
+    CUDA."""
     if points.dtype != torch.int32 or points.dim() != 3 or \
             points.shape[1:] != (2, FQ.L):
         raise ValueError(f"points must be [N, 2, 12] int32, got "
                          f"{tuple(points.shape)} {points.dtype}")
+    if wsums is None:
+        wsums = torch.zeros((WINDOWS, 4, FQ.L), dtype=torch.int32,
+                            device=points.device)
+    if wsums.shape != (WINDOWS, 4, FQ.L) or wsums.device != points.device \
+            or not wsums.is_contiguous():
+        raise ValueError(f"bad window sums {tuple(wsums.shape)} on "
+                         f"{wsums.device}")
     if points.device.type == "cpu":
-        return plain_scan_msm(points, plan)
+        return plain_scan_msm(points, plan, wsums=wsums, ladder=ladder)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
     for t, dt in ((plan.idx, torch.int32), (plan.first, torch.int64),
@@ -177,15 +211,18 @@ def scan_msm(points: torch.Tensor, plan: Landing):
     buf1 = rows(items[1] if plan.levels > 2 else 0, 2)
     partial = rows(items[-1] if items else 0, 4)
     slice_log, block_log = reduce_geometry(BUCKETS)
-    block_sums, wsums, counters, out = reduce_scratch(WINDOWS, BUCKETS, dev)
+    # block_sums takes the 16 window pairs of the last group's ladder
+    block_sums, counters, out = reduce_scratch(plan.windows, BUCKETS, dev,
+                                               WINDOWS // 2)
     kernels.msm_u8(points.data_ptr(), plan.idx.data_ptr(),
-                   plan.first.data_ptr(), WINDOWS, plan.levels,
+                   plan.first.data_ptr(), plan.windows, plan.levels,
                    geo.ctypes.data, buf0.data_ptr(), buf1.data_ptr(),
                    partial.data_ptr(), plan.merge_prefix.data_ptr(),
                    plan.merge_passes, slice_log, block_log,
-                   block_sums.data_ptr(), wsums.data_ptr(),
-                   counters.data_ptr(), out.data_ptr())
-    return out, wsums
+                   block_sums.data_ptr(), wsums[plan.w0].data_ptr(),
+                   counters.data_ptr(), wsums.data_ptr(),
+                   WINDOWS if ladder else 0, out.data_ptr())
+    return (out if ladder else None), wsums
 
 
 def _plain_level(src: torch.Tensor, idx: Optional[torch.Tensor],
@@ -233,13 +270,16 @@ def _plain_level(src: torch.Tensor, idx: Optional[torch.Tensor],
 
 
 def plain_scan_msm(points: torch.Tensor, plan: Landing,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None,
+                   wsums: Optional[torch.Tensor] = None,
+                   ladder: bool = True):
     """Plain version of K4: the affine levels (`_plain_level`), each
     bucket's remaining partials summed by `curve.run_sums`, and K3's plain
-    reduction. `stats`, if given, counts the levels' items by kind (copy,
-    add, dbl, cancel)."""
+    reduction (window sums into rows plan.w0 .. of `wsums`; the ladder over
+    all 32 with `ladder`). `stats`, if given, counts the levels' items by
+    kind (copy, add, dbl, cancel)."""
     dev = points.device
-    nb = WINDOWS * BUCKETS
+    nb = plan.windows * BUCKETS
     part = points
     idx = plan.idx.to(torch.int64)
     for lvl in range(plan.levels):
@@ -256,14 +296,24 @@ def plain_scan_msm(points: torch.Tensor, plan: Landing,
         key = torch.repeat_interleave(torch.arange(nb, device=dev),
                                       last[1:] - last[:-1])
         table = curve.run_sums(key, (x, y, z), nb, affine=False)
-    return plain_reduce(table, WINDOWS, BUCKETS, WINDOW_BITS)
+    if wsums is None:
+        wsums = torch.zeros((WINDOWS, 4, FQ.L), dtype=torch.int32,
+                            device=dev)
+    return plain_reduce(table, plan.windows, BUCKETS, WINDOW_BITS, wsums,
+                        plan.w0, ladder)
 
 
 def msm_parts(points: torch.Tensor, digits16: torch.Tensor,
               lanes: Optional[int] = None):
     """`scan_msm` of the first n points (n = number of digit rows), 8-bit
-    windows: (MSM point [4, 12], window sums [32, 4, 12]), XYZZ."""
+    windows, a group of windows at a time (`window_groups`): (MSM point
+    [4, 12], window sums [32, 4, 12]), XYZZ."""
     n = digits16.shape[0]
     if points.shape[0] < n:
         raise ValueError(f"{points.shape[0]} points < {n} scalars")
-    return scan_msm(points[:n], land(digits16, lanes))
+    wsums = torch.empty((WINDOWS, 4, FQ.L), dtype=torch.int32,
+                        device=points.device)
+    for w0, w1 in window_groups(WINDOWS, n, PAIR_BYTES, msm.GROUP_BYTES):
+        out, _ = scan_msm(points[:n], land(digits16, lanes, w0, w1), wsums,
+                          ladder=w1 == WINDOWS)
+    return out, wsums

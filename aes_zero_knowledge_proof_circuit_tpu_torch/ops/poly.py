@@ -5,8 +5,10 @@ high); a scalar is a [1, 8] row that broadcasts. Products go through kernel
 K1 and transforms through K2 (ops/ntt.py). Sums over many rows (tree sums,
 prefix sums, segment sums, block suffix sums) are exact int64 sums of the
 16-bit half-limbs folded back into the field once (`fold_wide`), the same
-V = V_lo + R * V_hi trick as poly_jax.segment_sum_mod. No four-step or
-chunked paths: they existed for a 16 GB chip.
+V = V_lo + R * V_hi trick as poly_jax.segment_sum_mod. The half-limbs take
+four times the rows' bytes, so those sums run over SUM_ROWS rows at a
+time: at 2^26 rows (a 1 KB proof's openings) one pass took 32 GiB of the
+card at once. No four-step paths: they existed for a 16 GB chip.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from .ntt import ntt_engine
 
 F = fr_ops()
 L = F.L
+# rows whose half-limbs (1 GiB) one exact sum takes: every sum of a 64-byte
+# proof (at most 2^22 + 1 rows) still runs in one pass
+SUM_ROWS = 1 << 23
 
 
 def dpoly(ints: Sequence[int], device) -> torch.Tensor:
@@ -138,14 +143,28 @@ def _cumsum0(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
 
 
 def tree_sum(vals: torch.Tensor) -> torch.Tensor:
-    """Sum along axis 0 (mod r) -> [1, 8]."""
-    return fold_wide(halves(vals).sum(dim=0, keepdim=True))
+    """Sum along axis 0 (mod r) -> [1, 8]: the column sums of SUM_ROWS rows
+    at a time, added exactly (each column stays below 2^16 N)."""
+    cols = sum(halves(vals[a:a + SUM_ROWS]).sum(dim=0, keepdim=True)
+               for a in range(0, vals.shape[0], SUM_ROWS))
+    return fold_wide(cols if vals.shape[0] else halves(vals).sum(
+        dim=0, keepdim=True))
 
 
 def prefix_sum(vals: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive prefix (or suffix) sums along axis 0 — the prefix-sum use of
-    scan_utils.hillis_scan, as one exact int64 cumsum."""
-    return fold_wide(_cumsum0(halves(vals), reverse))
+    scan_utils.hillis_scan, as exact int64 cumsums of SUM_ROWS rows at a
+    time, each chunk's sums then offset by the total before it (mod r)."""
+    out = torch.empty_like(vals)
+    starts = range(0, vals.shape[0], SUM_ROWS)
+    carry = None
+    for a in (reversed(starts) if reverse else starts):
+        part = fold_wide(_cumsum0(halves(vals[a:a + SUM_ROWS]), reverse))
+        if carry is not None:
+            part = F.add(part, carry)
+        out[a:a + SUM_ROWS] = part
+        carry = part[:1] if reverse else part[-1:]
+    return out
 
 
 def div_vanishing(p: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -156,7 +175,11 @@ def div_vanishing(p: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
         return zeros(1, p.device), pad_to(p, m)
     blocks = -(-n // m)
     pp = pad_to(p, blocks * m).reshape(blocks, m, L)
-    suffix = fold_wide(_cumsum0(halves(pp), reverse=True))
+    # the columns' suffix sums are independent: SUM_ROWS rows at a time
+    width = max(1, SUM_ROWS // blocks)
+    parts = [fold_wide(_cumsum0(halves(pp[:, a:a + width]), reverse=True))
+             for a in range(0, m, width)]
+    suffix = torch.cat(parts, dim=1)
     h = suffix[1:].reshape((blocks - 1) * m, L)
     rem = F.add(pp[0], suffix[1])
     return h, rem
@@ -167,5 +190,7 @@ def segment_sum_mod(values: torch.Tensor, seg_ids: torch.Tensor,
     """Field sums of [N, 8] rows by segment id -> [num_segments, 8]."""
     cols = torch.zeros((num_segments, 2 * L), dtype=torch.int64,
                        device=values.device)
-    cols.index_add_(0, seg_ids.to(torch.int64), halves(values))
+    for a in range(0, values.shape[0], SUM_ROWS):
+        cols.index_add_(0, seg_ids[a:a + SUM_ROWS].to(torch.int64),
+                        halves(values[a:a + SUM_ROWS]))
     return fold_wide(cols)

@@ -2,8 +2,10 @@
 
 `PackedPowers` keeps the G1 powers in the checkpoint layout and builds host
 points only on access; `generate_srs_native` runs the native fixed-base
-ladder. The checkpoint is the `.npz` written by utils/serialize.save_srs,
-loaded here with `allow_pickle=False`.
+ladder on the host, `generate_srs_device` the same ladder on a CUDA card
+(kernel K6): from the same rng both give the same SRS. The checkpoint is
+the `.npz` written by utils/serialize.save_srs, loaded here with
+`allow_pickle=False`.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import random as _random
 import numpy as np
 import torch
 
-from ..ops import kzg
+from ..ops import fixed_base, kzg
+from ..ops import poly as P
 from ..ops.curve_host import (
     AffinePoint,
     g1_generator,
@@ -23,11 +26,17 @@ from ..ops.curve_host import (
     g1_point,
     g2_generator,
 )
+from ..ops.field import fr_ops
 from ..ops.field_params import R_MOD
 from ..ops.msm import points_from_packed
+from .device import resolve_device
 from .native import native
 
 log = logging.getLogger(__name__)
+
+# Powers a device SRS generates at a time: at 2^22 K6's Jacobian rows and
+# the packed output of one chunk take about 1 GiB of device memory.
+SRS_CHUNK = 1 << 22
 
 
 class PackedPowers:
@@ -93,9 +102,16 @@ def generate_srs_native(max_degree: int, rng: _random.Random) -> kzg.SRS:
     packed = lib.g1_powers_fixed_base_packed(g, scalars)
     if packed is None:
         raise RuntimeError("native fixed-base ladder failed")
-    powers = PackedPowers(packed)
+    return _srs_from(max_degree, PackedPowers(packed), tau, gamma, "native")
+
+
+def _srs_from(max_degree: int, powers: PackedPowers, tau: int, gamma: int,
+              where: str) -> kzg.SRS:
+    """The SRS around its G1 powers: the first two checked against host
+    arithmetic, gamma's hiding powers and the G2 part made on the host."""
+    g = g1_generator()
     if powers[0] != g or powers[1] != g.mul_scalar(tau):
-        raise RuntimeError("native SRS generation produced wrong powers")
+        raise RuntimeError(f"{where} SRS generation produced wrong powers")
     gamma_g = g.mul_scalar(gamma)
     gamma_powers = [gamma_g]
     for _ in range(kzg.HIDING_POWERS):
@@ -103,6 +119,32 @@ def generate_srs_native(max_degree: int, rng: _random.Random) -> kzg.SRS:
     h = g2_generator()
     return kzg.SRS(max_degree=max_degree, powers_g1=powers,
                    gamma_powers_g1=gamma_powers, h=h, tau_h=h.mul_scalar(tau))
+
+
+def generate_srs_device(max_degree: int, rng: _random.Random,
+                        device="cuda") -> kzg.SRS:
+    """Powers-of-tau SRS with the fixed-base ladder on `device` (the
+    counterpart of parallel/srs_gen.generate_srs_device): tau, then gamma,
+    drawn as generate_srs_native draws them, so the same rng gives the same
+    SRS. `SRS_CHUNK` powers at a time: tau^(start + j) = tau^j tau^start (K1),
+    standard form, the ladder (K6), the batch-inverse normalization, and
+    the packed rows to the host array."""
+    dev = resolve_device(device)
+    tau = rng.randrange(1, R_MOD)
+    gamma = rng.randrange(1, R_MOD)
+    f = fr_ops()
+    table = fixed_base.window_table(g1_generator(), dev)
+    n = max_degree + 1
+    log.info("device SRS: %d fixed-base powers on %s", n, dev)
+    packed = np.empty((n, 2, 24), np.uint32)
+    base = P.powers(P.scalar(tau, dev), min(SRS_CHUNK, n))
+    for start in range(0, n, base.shape[0]):
+        m = min(base.shape[0], n - start)
+        scalars = f.to_canonical_limbs(
+            f.mul(base[:m], P.scalar(pow(tau, start, R_MOD), dev)))
+        rows = fixed_base.to_packed(fixed_base.fixed_base(table, scalars))
+        packed[start:start + m] = rows.cpu().numpy().view(np.uint32)
+    return _srs_from(max_degree, PackedPowers(packed), tau, gamma, "device")
 
 
 def load_srs(path: str) -> kzg.SRS:

@@ -11,7 +11,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 3. kernels: K1 (field mul/add/sub, pow and inv, batch_inv), K2 (NTT
    passes), K3 (signed-window MSM: bucket accumulation, reduction and
    window ladder), K4 (8-bit bucket MSM: batch-affine tree levels, then the
-   shared reduction) and K5 (Fq digit-column product) against their plain
+   shared reduction), K5 (Fq digit-column product) and K6 (the fixed-base
+   ladder of the SRS: K6 at 2^12 powers, the card's SRS of degree 2^16 - 1
+   against the native one from the same seed; K6 timed at 2^20 and 2^22,
+   its plain version at 2^20) against their plain
    PyTorch versions on the card, bit-exact (MSM points compared as affine
    points; batch_inv and inv at 2^20 rows with zero rows at the ends, at a
    chunk boundary and over a whole chunk; the NTT both ways at 2^1 ... 2^22
@@ -36,8 +39,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the plain versions by the median of 3 synchronized wall-clock runs;
 4. the ntt_mul path (K5's entry point) at 2^20 columns, with its launches
    and a sample of its columns checked against host integers;
-5. srs: the 64-byte ECB template and its SRS of degree 2^22, generated once
-   and checkpointed, so that every smaller key truncates it;
+5. srs: the 1 KB ECB template (built on the host from the run's start in
+   a process of its own) and its SRS of degree 2^26, generated once on the
+   card (K1 and K6) and checkpointed with its 2^22 prefix, so that every
+   smaller key truncates it; three of its powers checked by the host
+   pairing e(P_i, h) = e(P_{i-1}, tau h);
 6. main path: synthesize_keys(16) on the card (the index committed on K4),
    a zk proof of one AES-128 block, verification (and rejection of a
    flipped ciphertext bit), a proof serialization round trip, a warm prove
@@ -67,21 +73,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
    block, a serialization round trip, the card's peak memory in the
    proves; then K3 and K4 at the key's 2^22 + 1 SRS points against the
    native Pippenger;
-11. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
+11. 1KB: synthesize_keys(1024) (64 ECB blocks: n = 2^24, matrices of
+   2^24, 2^24 and 2^25, the index committed on K4 in window groups,
+   round-2 and round-3 cosets and SRS of 2^26), a cold and a warm zk
+   proof on the K3 engine and a warm one on the K4 engine with stage times
+   and launches, verification on the host, rejection of a flipped bit in
+   the 64th ciphertext block, a serialization round trip, the card's
+   memory before and over the proves; then K3 and K4 at 2^25 + 1 SRS
+   points equal to each other, and K3 at the key's 2^26 + 1 points equal
+   to the sum of K3 over its two halves;
+12. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
    setup on the SRS checkpoint truncated to degree n + 8, a cold and a warm
    zk proof on the card (TorchPlonkProver: the 2^21 coset transforms on K2,
    every commitment on K3) with stage times, verified on the host, and
    rejected against a flipped ciphertext bit; then a chain circuit of 2^12
    gates whose proof on the card equals the host prover's field for field.
 
-Each path (ntt_mul, main; and each index and prove of cbc, batch, 32B, 64B
-and plonk) runs with the launch counts set to 0 just before it and read just
-after; every kernel must have launched in the path that uses it (K1, K2
-and K3 in each prove, K1, K2 and K4 in each index), and the JSON
-`launches` entry is the main path's count.
+Each path (ntt_mul, srs, main; and each index and prove of cbc, batch, 32B,
+64B, 1KB and plonk) runs with the launch counts set to 0 just before it and
+read just after; every kernel must have launched in the path that uses it
+(K1, K2 and K3 in each prove, K1, K2 and K4 in each index, K1 and K6 in the
+SRS generation), and the JSON `launches` entry is the main path's count
+(K5's from the ntt_mul path, K6's from the srs path).
 
-The run uses a cache directory of its own (templates, SRS, native library),
-removed at the end, so the index is always computed. The second-to-last
+The run sets PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless it is
+set already, and uses a cache directory of its own (templates, SRS, keys,
+native library: about 20 GB at 1 KB), removed at the end, so the index is
+always computed. The second-to-last
 line of stdout is the nvidia-smi line; before it a JSON line with one entry
 per kernel. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -93,6 +111,7 @@ import dataclasses
 import json
 import os
 import random
+import resource
 import shutil
 import statistics
 import subprocess
@@ -100,14 +119,20 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+# the allocator maps growing segments instead of reserving a block a size
+# (41 GiB reserved for a 16.7 GiB peak at 64 bytes without it); it is read
+# when torch first touches the card
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from aes_zero_knowledge_proof_circuit_tpu_torch import api, kernels
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import (
     to_msm_digits,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import edge_inputs as EI
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops import fixed_base as FB
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_device as MD
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_ntt_mul as NM
@@ -118,6 +143,11 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import (
     fr_ops,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import R_MOD
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops import pairing_host as PH
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops import poly as P
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops.curve_host import (
+    g1_generator,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
 from aes_zero_knowledge_proof_circuit_tpu_torch.plonk import backend as plonk
 from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.aes_map import (
@@ -130,6 +160,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
     TorchPlonkProver,
     field_rows,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils import srs as S
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
     generate_srs_native,
 )
@@ -149,7 +180,10 @@ KERNEL_INFO = {
                "aes_zero_knowledge_proof_circuit_tpu/ops/msm_pallas.py:146"),
     "fq_cols": ("csrc/fq_cols.cu",
                 "aes_zero_knowledge_proof_circuit_tpu/ops/msm_ntt_mul.py:408"),
+    "srs": ("csrc/srs.cu",
+            "aes_zero_knowledge_proof_circuit_tpu/parallel/srs_gen.py:108"),
 }
+KB_BYTES = 1024    # the largest message of the run: its SRS is generated first
 
 
 # the card's peaks the bounds are taken against (NVIDIA H100 SXM at 700 W):
@@ -436,11 +470,47 @@ def msm_bytes(n: int) -> float:
     return n * (96 + 32)
 
 
+K3_GROUP = 3       # windows a group of K3 at 2^26 points (1 KB proofs)
+K4_GROUP = 4       # windows a group of K4 at 2^25 points (the 1 KB index)
+
+
+def grouped_k3(fn, pts, scalars, c=None):
+    """fn (bucket_msm or its plain version) over the windows of
+    msm_inputs(pts, scalars, c) in groups of K3_GROUP, as msm_point runs a
+    1 KB commit: each group's sums into its rows of one wsums, the ladder
+    in the last group only. (MSM point, wsums), XYZZ."""
+    c = c or M.window_bits(scalars.shape[0])
+    mags, negs = M.signed_digits(scalars, c)
+    w_count, buckets = mags.shape[0], 1 << (c - 1)
+    wsums = torch.empty((w_count, 4, 12), dtype=torch.int32,
+                        device=pts.device)
+    for w0 in range(0, w_count, K3_GROUP):
+        w1 = min(w_count, w0 + K3_GROUP)
+        runs = M.bucket_runs(mags[w0:w1], negs[w0:w1], buckets)
+        out, _ = fn(pts[: scalars.shape[0]], *runs, w1 - w0, buckets, c,
+                    wsums, w0, ladder=w1 == w_count)
+    return out, wsums
+
+
+def grouped_k4(fn, pts, digits, lanes, **kw):
+    """fn (scan_msm or its plain version) over the 32 windows landed in
+    groups of K4_GROUP, as msm_parts runs the 1 KB index: (MSM point,
+    wsums), XYZZ."""
+    wsums = torch.empty((MP.WINDOWS, 4, 12), dtype=torch.int32,
+                        device=pts.device)
+    for w0 in range(0, MP.WINDOWS, K4_GROUP):
+        w1 = min(MP.WINDOWS, w0 + K4_GROUP)
+        out, _ = fn(pts, MP.land(digits, lanes, w0, w1), wsums=wsums,
+                    ladder=w1 == MP.WINDOWS, **kw)
+    return out, wsums
+
+
 def check_msm(results: dict, srs_packed: np.ndarray, dev) -> None:
     """K3 (point and window sums) against its plain version at 2^10 points
     (its own window width and the full 13-bit geometry, with repeated,
-    negated and zero pairs) and at 3 points; then msm() at 2^16 against the
-    native Pippenger."""
+    negated and zero pairs) and at 3 points, each also in groups of
+    K3_GROUP windows (grouped kernel against grouped plain, and equal to
+    the one-group MSM); then msm() at 2^16 against the native Pippenger."""
     f = fr_ops()
     rnd = random.Random(7)
     points = M.points_from_packed(srs_packed, dev)
@@ -452,12 +522,19 @@ def check_msm(results: dict, srs_packed: np.ndarray, dev) -> None:
         if n > 4:
             pts[1], sc[1] = pts[4], sc[4]      # P + P in every window
             pts[2], sc[2] = pts[3], f.modulus - sc[3]   # P - P
-        args = msm_inputs(pts, f.from_ints(sc, dev, mont=False), c)
-        e = xyzz_err(M.bucket_msm(*args), M.plain_bucket_msm(*args))
-        if e:
+        scalars = f.from_ints(sc, dev, mont=False)
+        args = msm_inputs(pts, scalars, c)
+        one = M.bucket_msm(*args)
+        e = xyzz_err(one, M.plain_bucket_msm(*args))
+        grouped = grouped_k3(M.bucket_msm, pts, scalars, c)
+        e_grouped = max(xyzz_err(grouped, grouped_k3(M.plain_bucket_msm, pts,
+                                                     scalars, c)),
+                        xyzz_err(grouped, one))
+        if e or e_grouped:
             raise AssertionError(f"K3 at {n} points (c={args[-1]}) disagrees "
-                                 f"with plain")
-        err = max(err, e)
+                                 f"with plain (one group: {e}, groups of "
+                                 f"{K3_GROUP}: {e_grouped})")
+        err = max(err, e, e_grouped)
     n = srs_packed.shape[0]
     sc = [rnd.randrange(f.modulus) for _ in range(n)]
     scalars = f.from_ints(sc, dev, mont=False)
@@ -470,7 +547,8 @@ def check_msm(results: dict, srs_packed: np.ndarray, dev) -> None:
     if err:
         raise AssertionError(f"K3 at {n} points disagrees with native")
     results["msm"]["max_abs_err"] = err
-    say(f"[K3] MSM at 2^10 (c=7 and 13) and 3 points vs plain; msm() at "
+    say(f"[K3] MSM at 2^10 (c=7 and 13) and 3 points vs plain, one group "
+        f"and groups of {K3_GROUP} windows (ladder in the last); msm() at "
         f"2^{n.bit_length() - 1} vs native Pippenger (card {t1 - t0:.3f}s "
         f"with digits, sort and affine result; native {t2 - t1:.3f}s): "
         f"equal points [{CARD}]")
@@ -482,7 +560,9 @@ def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
     adds a thread over every tree level) with equal, opposite and infinity
     points in one bucket, and at edge shapes: n not a power of two, a long
     equal-digit run in the low window, windows 8-31 all zero, few points;
-    then msm_device at 2^16 against the native Pippenger."""
+    each also in groups of K4_GROUP windows (grouped kernel against grouped
+    plain, and equal to the one-group MSM); then msm_device at 2^16 against
+    the native Pippenger."""
     f = fr_ops()
     rnd = random.Random(11)
     points = M.points_from_packed(srs_packed, dev)
@@ -496,16 +576,23 @@ def check_msm_u8(results: dict, srs_packed: np.ndarray, dev) -> None:
         for i in range(1, min(n, 300)):
             sc[i] = (sc[i] & ~0xFF) | 0x5A
         pts = EI.k4_edge_points(points, n)
-        plan = MP.land(MD.digit_limbs(f.from_ints(sc, dev, mont=False)), lanes)
-        e = xyzz_err(MP.scan_msm(pts, plan),
-                     MP.plain_scan_msm(pts, plan, kinds))
-        if e:
+        digits = MD.digit_limbs(f.from_ints(sc, dev, mont=False))
+        plan = MP.land(digits, lanes)
+        one = MP.scan_msm(pts, plan)
+        e = xyzz_err(one, MP.plain_scan_msm(pts, plan, kinds))
+        grouped = grouped_k4(MP.scan_msm, pts, digits, lanes)
+        e_grouped = max(xyzz_err(grouped, grouped_k4(MP.plain_scan_msm, pts,
+                                                     digits, lanes)),
+                        xyzz_err(grouped, one))
+        if e or e_grouped:
             raise AssertionError(f"K4 at {n} points (lanes {lanes}) disagrees "
-                                 f"with plain")
-        err = max(err, e)
+                                 f"with plain (one group: {e}, groups of "
+                                 f"{K4_GROUP}: {e_grouped})")
+        err = max(err, e, e_grouped)
         say(f"[K4] {n} points, lanes {plan.lanes}: {plan.levels} affine "
             f"levels (chunks {plan.geometry[:, 1].tolist()}), "
-            f"{plan.merge_passes} XYZZ merge levels; equal to plain")
+            f"{plan.merge_passes} XYZZ merge levels; equal to plain, one "
+            f"group and groups of {K4_GROUP} windows")
     if not all(kinds.get(k, 0) for k in MP.KINDS):
         raise AssertionError(f"K4's inputs missed a branch: {kinds}")
     n = srs_packed.shape[0]
@@ -568,6 +655,74 @@ def check_fq_sample(a, b, out, m: int = 2048) -> None:
         raise AssertionError("ntt_mul disagrees with host integers")
     if int(out.min()) < 0 or int(out.max()) > 255 or bool(out[48:].any()):
         raise AssertionError("ntt_mul output is not canonical digits")
+
+
+def fixed_base_products(scalars: torch.Tensor) -> int:
+    """Fq products K6 needs on these scalars: a mixed add (10 products) for
+    every nonzero byte of a scalar but its first."""
+    nonzero = (FB.scalar_bytes(scalars) != 0).sum(dim=0)
+    return 10 * int((nonzero - 1).clamp(min=0).sum())
+
+
+def check_fixed_base(results: dict, srs_native, dev) -> None:
+    """K6 against its plain version at 2^12 powers of a random tau (both
+    normalized by the same batch inversion: bit-exact limbs), the card's SRS
+    against the native one of degree 2^16 - 1 from the same seed; then K6
+    by events at 2^20 and 2^22 (one chunk of the device SRS, S.SRS_CHUNK)
+    with its bound, and its outputs against the plain version's (one run
+    at 2^20, timed; at 2^22 over slices of 2^20 powers, so that the plain
+    version's temporaries stay those of 2^20)."""
+    f = fr_ops()
+    tau = random.Random(19).randrange(1, R_MOD)
+    table = FB.window_table(g1_generator(), dev)
+
+    def powers(log_n: int) -> torch.Tensor:
+        return f.to_canonical_limbs(P.powers(P.scalar(tau, dev), 1 << log_n))
+
+    sc = powers(12)
+    err = max_abs_err(FB.to_packed(FB.fixed_base(table, sc)),
+                      FB.to_packed(FB.plain_fixed_base(table, sc)))
+    if err:
+        raise AssertionError(f"K6 at 2^12 powers: err {err}")
+    t0 = time.perf_counter()
+    got = S.generate_srs_device(srs_native.max_degree, random.Random(3), dev)
+    secs = time.perf_counter() - t0
+    if not np.array_equal(got.powers_g1.packed, srs_native.powers_g1.packed) \
+            or got.gamma_powers_g1 != srs_native.gamma_powers_g1 \
+            or (got.h, got.tau_h) != (srs_native.h, srs_native.tau_h):
+        raise AssertionError("the card's SRS differs from the native one")
+    say(f"[K6] 2^12 powers vs plain: bit-exact; the card's SRS of degree "
+        f"{srs_native.max_degree} ({secs:.2f}s) equals the native one from "
+        f"the same seed [{CARD}]")
+    for log_n in (20, 22):
+        n = 1 << log_n
+        sc = powers(log_n)
+        k, out = events_ms(lambda: FB.fixed_base(table, sc))
+        products = fixed_base_products(sc)
+        bound = {}
+        # each scalar (32 B) read and each XYZZ point (192 B) written once,
+        # the 786 KB table read once
+        set_bound(bound, n * (32 + 192) + table.numel() * 4,
+                  products * FQ_PRODUCT)
+        step = 1 << MAIN_LOG
+        p, want = timed(lambda: torch.cat([
+            FB.plain_fixed_base(table, sc[a:a + step])
+            for a in range(0, n, step)]), reps=1)
+        err = max_abs_err(FB.to_packed(out), FB.to_packed(want))
+        if err:
+            raise AssertionError(f"K6 at 2^{log_n} powers: err {err}")
+        plain_text = f"{p:.3f} ms (one run), equal"
+        if log_n == MAIN_LOG:
+            results["srs"].update(max_abs_err=err, ms=k, plain_ms=p, **bound)
+        else:
+            plain_text += f" (slices of 2^{MAIN_LOG})"
+            results["srs"]["max_abs_err"] = max(
+                err, results["srs"]["max_abs_err"])
+        say(f"[time] K6 fixed-base ladder 2^{log_n} powers: kernel {k:.3f} "
+            f"ms (events), bound {bound['bound_ms']:.3f} ms "
+            f"({bound['bound_by']}; {products} Fq products, "
+            f"{products / n / 10:.2f} mixed adds a power), plain "
+            f"{plain_text} [{CARD}]")
 
 
 def phase_ntt_mul(results: dict, gen, dev) -> None:
@@ -914,24 +1069,99 @@ def stage_text(pk) -> str:
                      for k, v in pk._prover.last_stage_times.items())
 
 
+def stage_memory_text(pk) -> str:
+    """Device memory at each stage's end of the last prove: allocated /
+    the peak so far."""
+    return ", ".join(f"{k} {gib(a)} / {gib(p)}"
+                     for k, (a, p) in pk._prover.last_stage_memory.items())
+
+
 def flipped(data: bytes, byte: int) -> bytes:
     bad = bytearray(data)
     bad[byte] ^= 1
     return bytes(bad)
 
 
-def phase_srs() -> None:
-    """The SRS checkpoint of the largest key of the run (64-byte ECB,
-    degree 2^22), generated once: every smaller key truncates it."""
+SMALL_KEYS_DEGREE = 1 << 22    # the SRS degree of the 64-byte key
+
+
+def start_template_job(cache: str) -> subprocess.Popen:
+    """Build and cache the 1 KB ECB template in a process of its own (host
+    work of minutes, no card) while the phases before [srs] run. Its last
+    line: constraints, SRS degree, build seconds, peak RSS in GiB."""
+    code = (
+        "import resource, sys, time\n"
+        "t0 = time.perf_counter()\n"
+        f"from {PKG} import api\n"
+        "api.CONFIG.cache_dir = sys.argv[1]\n"
+        "tpl = api._template_cached(int(sys.argv[2]), 'ecb')\n"
+        "print(tpl.r1cs.num_constraints, api._srs_degree(tpl),\n"
+        "      time.perf_counter() - t0,\n"
+        "      resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, cache, str(KB_BYTES)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_srs(results: dict, job: subprocess.Popen, dev) -> None:
+    """The SRS of the largest key of the run (1 KB ECB, degree 2^26),
+    through the keys' own entry point api._srs_for on an empty cache:
+    generated on the card (K1 for the tau powers and the normalization, K6
+    for the ladder) and checkpointed; then its 2^22 prefix checkpointed,
+    so that every smaller key truncates that. Three of its powers checked
+    by the host pairing e(P_i, h) = e(P_{i-1}, tau_h)."""
     t0 = time.perf_counter()
-    tpl = api._template_cached(64, "ecb")
-    t1 = time.perf_counter()
-    need = api._srs_degree(tpl)
-    api._srs_for(need, random.Random(17))
-    say(f"[srs] 64-byte ECB template {t1 - t0:.1f}s "
-        f"({tpl.r1cs.num_constraints} constraints); SRS of degree {need} "
-        f"generated and checkpointed in {time.perf_counter() - t1:.1f}s "
-        f"(host, native) [{CARD}]")
+    out, err = job.communicate()
+    waited = time.perf_counter() - t0
+    if job.returncode != 0:
+        raise AssertionError(f"the 1 KB template job failed:\n{err[-3000:]}")
+    constraints, need, build_s, rss = out.split()[-4:]
+    need = int(need)
+    say(f"[srs] 1 KB ECB template: {constraints} constraints, built and "
+        f"cached in {float(build_s):.1f}s (host, a process of its own "
+        f"since the run's start, peak RSS {float(rss):.2f} GiB); waited "
+        f"{waited:.1f}s for it")
+    # the checkpoint's seconds apart from the generation's: _srs_for saves
+    # through api._checkpoint_srs, timed here for this one call
+    checkpoint, save_s = api._checkpoint_srs, []
+
+    def timed_checkpoint(srs):
+        t0 = time.perf_counter()
+        checkpoint(srs)
+        save_s.append(time.perf_counter() - t0)
+
+    api._checkpoint_srs = timed_checkpoint
+    try:
+        srs, counts, secs = counted(
+            lambda: api._srs_for(need, random.Random(17), dev),
+            ("fr_ops", "srs"), "the SRS generation")
+    finally:
+        api._checkpoint_srs = checkpoint
+    if len(save_s) != 1:
+        raise AssertionError(f"_srs_for checkpointed {len(save_s)} SRSs, "
+                             f"expected its fresh one")
+    gen_s = secs - save_s[0]
+    results["srs"]["launches"] = counts["srs"]
+    t0 = time.perf_counter()
+    api._checkpoint_srs(S.truncate_srs(srs, SMALL_KEYS_DEGREE))
+    prefix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    powers = srs.powers_g1
+    pick = random.Random(23)
+    checked = [1] + [pick.randrange(2, need + 1) for _ in range(2)]
+    for i in checked:
+        if PH.pairing(powers[i], srs.h) != PH.pairing(powers[i - 1],
+                                                      srs.tau_h):
+            raise AssertionError(f"SRS power {i} fails the pairing check")
+    rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    say(f"[srs] SRS of degree {need} from api._srs_for: generated on the "
+        f"card in {gen_s:.1f}s (launches {counts}), checkpointed in "
+        f"{save_s[0]:.1f}s, its degree-{SMALL_KEYS_DEGREE} prefix in "
+        f"{prefix_s:.1f}s; e(P_i, h) = "
+        f"e(P_i-1, tau h) at i = {checked} ({time.perf_counter() - t0:.1f}s, "
+        f"host); host peak RSS {rss_gib:.2f} GiB [{CARD}]")
 
 
 def phase_cbc(dev) -> None:
@@ -1098,6 +1328,126 @@ def phase_64b(dev) -> None:
     check_native(pk, dev, "64B")
 
 
+def device_scalars(n: int, seed: int, dev) -> torch.Tensor:
+    """[n, 8] reduced standard-form Fr limbs drawn on the card (the top
+    limb below r's)."""
+    f = fr_ops()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randint(-2**31, 2**31, (n, f.L), dtype=torch.int32,
+                      generator=g, device=dev)
+    x[:, -1] = torch.randint(0, f.modulus >> (32 * (f.L - 1)), (n,),
+                             dtype=torch.int32, generator=g, device=dev)
+    return x
+
+
+def check_groups(pk, label: str) -> None:
+    """Grouped MSMs at the 1 KB key's sizes, outside the counted run: K3
+    and K4 at 2^25 + 1 SRS points (two and five window groups) equal to
+    each other, and K3 at all 2^26 + 1 points (four groups) equal to the
+    sum of K3 over its two halves."""
+    points = pk._prover.srs_dev.points
+    n = (1 << 25) + 1
+    sc = device_scalars(n, 31, points.device)
+    t0 = time.perf_counter()
+    got3 = M.msm(points[:n], sc)
+    t1 = time.perf_counter()
+    got4 = MD.msm_device(points[:n], MD.digit_limbs(sc))
+    t2 = time.perf_counter()
+    if point_err(got3, got4):
+        raise AssertionError(f"K3 and K4 differ at {n} SRS points")
+    n = points.shape[0]
+    sc = device_scalars(n, 32, points.device)
+    t3 = time.perf_counter()
+    whole = M.msm(points, sc)
+    t4 = time.perf_counter()
+    h = n // 2
+    halves = M.msm(points[:h], sc[:h]).add(M.msm(points[h:], sc[h:]))
+    if point_err(whole, halves):
+        raise AssertionError(f"K3 at {n} SRS points differs from the sum "
+                             f"over its halves")
+    m = (1 << 25) + 1
+    say(f"[{label}] msm() (K3) and msm_device() (K4) at {m} SRS points "
+        f"equal ({t1 - t0:.3f}s and {t2 - t1:.3f}s, window groups "
+        f"{M.window_groups(20, m, M.PAIR_BYTES, M.GROUP_BYTES)} and "
+        f"{M.window_groups(MP.WINDOWS, m, MP.PAIR_BYTES, M.GROUP_BYTES)}); "
+        f"K3 at {n} points ({t4 - t3:.3f}s, groups "
+        f"{M.window_groups(20, n, M.PAIR_BYTES, M.GROUP_BYTES)}) equals the "
+        f"sum of K3 over its halves [{CARD}]")
+
+
+def phase_1kb(dev) -> None:
+    """64 ECB blocks (n = 2^24, matrices up to k = 2^25, round-2 and
+    round-3 cosets and SRS of 2^26): the key (its index committed on K4 in
+    window groups), a cold and a warm zk proof on the K3 engine and a warm
+    one on the K4 engine with stage times and launches, verification on the
+    host, rejection of a flipped bit in the 64th ciphertext block, a
+    serialization round trip and the card's memory; then the grouped MSMs
+    at the key's sizes (`check_groups`)."""
+    message = bytes(range(256)) * 4
+    torch.cuda.reset_peak_memory_stats(dev)
+    (pk, vk), counts, secs = counted(
+        lambda: api.synthesize_keys(KB_BYTES, device=dev), INDEX_PATH,
+        "the 1 KB index")
+    times = ", ".join(f"{k} {v:.1f}s" for k, v in pk.setup_times.items())
+    shapes = (pk.marlin_pk.log_n, max(vk.log_ks), vk.max_degree)
+    say(f"[1KB] synthesize_keys({KB_BYTES}): {secs:.1f}s ({times}); "
+        f"{pk.template.r1cs.num_constraints} constraints, "
+        f"{pk.template.r1cs.num_instance} instance variables, n=2^{shapes[0]}, "
+        f"k=2^{vk.log_ks}, SRS degree {shapes[2]}; launches {counts}; peak "
+        f"device memory {gib(torch.cuda.max_memory_allocated(dev))} [{CARD}]")
+    if shapes != (24, 25, 1 << 26):
+        raise AssertionError(f"the 1 KB key has (log n, log k, degree) "
+                             f"{shapes}, not (24, 25, 2^26)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    proofs = {}
+    for label, seed in (("cold", 24), ("warm", 25)):
+        proofs[label], counts, secs = counted(
+            lambda: api.encrypt(message, KEY, pk, rng=random.Random(seed)),
+            PROVE_PATH, f"the {label} 1 KB prove")
+        if counts["msm_u8"]:
+            raise AssertionError("the K3-engine prove launched K4")
+        say(f"[1KB] {label} prove (zk, K3 engine): {secs:.3f}s; stages "
+            f"{stage_text(pk)}; launches {counts} [{CARD}]")
+        say(f"[1KB] {label} prove's device memory at each stage's end "
+            f"(allocated / peak so far): {stage_memory_text(pk)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"[1KB] device memory: {gib(resident)} allocated before the proves "
+        f"(the key, its prover and every earlier key of the run), peak "
+        f"{gib(peak)} in the K3-engine proves ({gib(peak - resident)} "
+        f"above), {gib(torch.cuda.max_memory_reserved(dev))} reserved at "
+        f"most [{CARD}]")
+    ct = api.compute_ciphertext(message, KEY)
+    t0 = time.perf_counter()
+    for label, proof in proofs.items():
+        if not api.verify_encryption(vk, proof, ct):
+            raise AssertionError(f"the {label} 1 KB proof does not verify")
+    if api.verify_encryption(vk, proofs["warm"], flipped(ct, 63 * 16)):
+        raise AssertionError("a flipped bit of the 64th ciphertext block "
+                             "still verifies")
+    say(f"[1KB] both proofs verify on the host; flipped bit in the 64th "
+        f"block rejected ({time.perf_counter() - t0:.1f}s for three "
+        f"verifications); serialize round trip "
+        f"{round_trip(vk, proofs['warm'], ct)} bytes")
+    check_groups(pk, "1KB")
+    # the K4-engine prover replaces the K3-engine one on the card
+    pk._prover = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pk4, _cold4 = pallas_engine_key(pk, message, "1KB")
+    proof4, counts, secs = counted(
+        lambda: api.encrypt(message, KEY, pk4, rng=random.Random(26)),
+        ("fr_ops", "ntt", "msm_u8"), "the 1 KB K4-engine prove")
+    if counts["msm"]:
+        raise AssertionError("the 1 KB K4-engine prove launched K3")
+    if not api.verify_encryption(vk, proof4, ct):
+        raise AssertionError("the 1 KB K4-engine proof does not verify")
+    say(f"[1KB] warm prove (zk, K4 engine): {secs:.3f}s; stages "
+        f"{stage_text(pk4)}; launches {counts}; verifies; peak device "
+        f"memory {gib(torch.cuda.max_memory_allocated(dev))} [{CARD}]")
+
+
 def build_chain(num_gates: int):
     """scripts/run_plonk_device.py:25 on the port's PlonkCircuit: public out;
     private x; x_{i+1} = x_i^2 + x_i with copy constraints; out = the last.
@@ -1211,14 +1561,14 @@ def timed_phase(name: str, fn, *args):
     return out
 
 
-def run(smi: str) -> None:
+def run(smi: str, job: subprocess.Popen) -> None:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
 
     # library_ms: no single PyTorch call computes a Montgomery product, a
-    # finite-field NTT or a G1 MSM
+    # finite-field NTT, a G1 MSM or a fixed-base G1 ladder
     results = {name: {"name": name, "route": "cuda",
                       "source": f"{PKG}/{src}", "replaces": rep,
                       "library_ms": None}
@@ -1235,14 +1585,17 @@ def run(smi: str) -> None:
     timed_phase("K3", check_msm, results, packed, dev)
     timed_phase("K4", check_msm_u8, results, packed, dev)
     timed_phase("K5", check_fq_cols, results, gen, dev)
+    timed_phase("K6", check_fixed_base, results, srs, dev)
     timed_phase("time", time_kernels, results, packed, gen, dev)
     timed_phase("ntt_mul", phase_ntt_mul, results, gen, dev)
-    timed_phase("srs", phase_srs)
+    timed_phase("srs", phase_srs, results, job, dev)
     pk, vk = timed_phase("main", phase_main_path, results, dev)
     timed_phase("cbc", phase_cbc, dev)
     timed_phase("batch", phase_batch, pk, vk)
     timed_phase("32B", phase_32b, dev)
     timed_phase("64B", phase_64b, dev)
+    timed_phase("1KB", phase_1kb, dev)
+    torch.cuda.empty_cache()
     timed_phase("plonk", phase_plonk, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1269,9 +1622,17 @@ def main() -> int:
     smi = phase_device()
     cache = tempfile.mkdtemp(prefix="zkaes-smoke-")
     api.CONFIG.cache_dir = cache    # templates, SRS, keys, native library
+    free = shutil.disk_usage(cache).free
+    say(f"[device] cache {cache}: {gib(free)} free on its disk; host "
+        f"{gib(os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES'))} "
+        f"of memory, {os.cpu_count()} cores")
+    job = start_template_job(cache)
     try:
-        run(smi)
+        run(smi, job)
     finally:
+        if job.poll() is None:
+            job.kill()
+        job.wait()
         shutil.rmtree(cache, ignore_errors=True)
     return 0
 

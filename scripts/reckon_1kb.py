@@ -18,6 +18,10 @@ entry point: digits, sort, landing, kernel, result on the device) and
 - K4: `msm_device.msm_device_point` (8-bit windows, batch-affine levels)
   at 2^22 ... 2^25, the index's commits at k = 2^25.
 
+Each MSM case prints its window groups (`msm.window_groups` at the
+module's PAIR_BYTES and msm.GROUP_BYTES): one group up to 2^22, seven
+for K3 at 2^26 (ten at 2^26 + 1) and eight for K4 at 2^25.
+
 K4's MSM is held equal to K3's wherever both run. A case that runs out of
 the card's memory is reported with the allocation that failed, and the
 script goes on. It exits non-zero without a CUDA device or when a point
@@ -41,6 +45,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M  # noqa: E402
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_device as MD  # noqa: E402
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_pallas as MP  # noqa: E402
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import ntt as N  # noqa: E402
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops  # noqa: E402
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (  # noqa: E402
@@ -144,13 +149,21 @@ def main() -> int:
         g.manual_seed(log_n)
         return points, random_scalars(n, g, dev)
 
+    def groups(windows: int, log_n: int, pair_bytes: int) -> str:
+        return str(M.window_groups(windows, 1 << log_n, pair_bytes,
+                                   M.GROUP_BYTES))
+
     k3 = {}
     for log_n in K3_LOGS:
+        say(f"[K3 msm_point 2^{log_n}] window groups "
+            f"{groups(M.n_windows(M.window_bits(1 << log_n)), log_n, M.PAIR_BYTES)}")
         k3[log_n] = measure(f"K3 msm_point 2^{log_n}",
                             lambda log_n=log_n: inputs(log_n), M.msm_point,
                             dev, card)
     bad = []
     for log_n in K4_LOGS:
+        say(f"[K4 msm_device_point 2^{log_n}] window groups "
+            f"{groups(MP.WINDOWS, log_n, MP.PAIR_BYTES)}")
         got = measure(
             f"K4 msm_device_point 2^{log_n}",
             lambda log_n=log_n: inputs(log_n),

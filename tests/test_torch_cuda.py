@@ -264,3 +264,71 @@ def test_plonk_chain_proof_on_the_card_matches_the_cpu(cuda):
                                              rng=random.Random(6))
     assert got == want
     assert verify(pk.vk, got, [out])
+
+
+def test_k6_matches_plain(cuda):
+    """K6 at 2^10 powers of a random tau (with the scalars 0 and 1 among
+    them) against its plain version: the same limbs after the same
+    normalization, and the normalized points equal s G on the host."""
+    import random
+
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import fixed_base as FB
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import poly as P
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.curve_host import (
+        g1_generator,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import (
+        R_MOD,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+        PackedPowers,
+    )
+
+    f = fr_ops()
+    tau = random.Random(7).randrange(1, R_MOD)
+    table = FB.window_table(g1_generator(), cuda)
+    sc = f.to_canonical_limbs(P.powers(P.scalar(tau, cuda), 1 << 10))
+    sc[5] = 0
+    got = FB.to_packed(FB.fixed_base(table, sc))
+    assert torch.equal(got, FB.to_packed(FB.plain_fixed_base(table, sc)))
+    pts = PackedPowers(got.cpu().numpy().view(np.uint32))
+    g = g1_generator()
+    for i in (0, 1, 5, 1023):
+        assert pts[i] == g.mul_scalar(f.to_ints(sc[i:i + 1], mont=False)[0])
+
+
+@pytest.mark.parametrize("engine", ["k3", "k4"])
+def test_grouped_msm_matches_one_group(cuda, engine, monkeypatch):
+    """K3 (msm_point) and K4 (msm_device_point) at 2^16 points with the
+    window budget cut to 1, 3 and 7 windows a group: each equals the
+    one-group MSM and the native Pippenger."""
+    import random
+
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm as M
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_device as MD
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import msm_pallas as MP
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import (
+        R_MOD,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+        generate_srs_native,
+    )
+
+    n = 1 << 16
+    packed = generate_srs_native(n - 1, random.Random(4)).powers_g1.packed
+    pts = M.points_from_packed(packed, cuda)
+    rnd = random.Random(8)
+    scalars = fr_ops().from_ints([rnd.randrange(R_MOD) for _ in range(n)],
+                                 cuda, mont=False)
+    if engine == "k3":
+        run, pair = (lambda: M.msm_point(pts, scalars)), M.PAIR_BYTES
+    else:
+        run = lambda: MD.msm_device_point(pts, MD.digit_limbs(scalars))
+        pair = MP.PAIR_BYTES
+    want = M.native_msm(packed, scalars)
+    assert M.xyzz_to_affine(run())[0] == want
+    for group in (1, 3, 7):
+        monkeypatch.setattr(M, "GROUP_BYTES", group * n * pair)
+        assert M.xyzz_to_affine(run())[0] == want
