@@ -18,7 +18,7 @@ _API_SYMBOLS = (
     "compute_ciphertext", "bits_lsb_first", "generate_rand",
     "serialize_proof", "deserialize_proof", "Fr", "ZkAesError",
     "SynthesisError", "InvalidInputError", "CapacityError",
-    "SerializationError", "ProofError", "NotPortedError",
+    "SerializationError", "ProofError", "Mesh", "make_mesh",
 )
 
 __all__ = list(_API_SYMBOLS) + ["api", "__version__"]

@@ -2,8 +2,10 @@
 
     synthesize_keys(plaintext_length, mode=..., device=...)
         -> (AESProvingKey, vk)
-    encrypt(message, secret_key, proving_key, iv=...) -> MarlinProof
-    encrypt_batch(messages, secret_key, proving_key) -> [MarlinProof]
+    encrypt(message, secret_key, proving_key, iv=..., mesh=...)
+        -> MarlinProof
+    encrypt_batch(messages, secret_key, proving_key, mesh=...)
+        -> [MarlinProof]
     verify_encryption(verifying_key, proof, ciphertext, iv=...) -> bool
     compute_ciphertext(message, secret_key, iv=...) -> bytes
 
@@ -15,8 +17,11 @@ packages and a proof from either verifies with the other's verifier.
 Templates and indexed keys are cached under names of this package's own
 (`tpl_torch_*`, `pk_torch_*`), since their pickles name this package's
 classes; SRS checkpoints are plain arrays and shared. Both modes are
-ported: ECB, and CBC with a public 16-byte iv. Multi-device meshes
-(`mesh=`) raise NotPortedError.
+ported: ECB, and CBC with a public 16-byte iv. `mesh=` takes a
+`parallel.mesh.Mesh` (`make_mesh`) of devices of the key's type: one call
+drives every device, the prover's 4n-domain transforms and MSMs sharded
+over the mesh (marlin/prover.py), and `encrypt_batch` fills the witnesses
+data-parallel over it; the proofs equal the single-device ones.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ from .models.aes_circuit import Template, build_template
 from .ops import kzg
 from .ops.aes_host import encrypt_cbc, encrypt_ecb
 from .ops.field_params import R_MOD
-from .ops.witness import WitnessEvaluator
+from .ops.witness import WitnessEvaluator, evaluate_sharded
+from .parallel.mesh import Mesh, make_mesh
 from .utils import srs as _srs
 from .utils.config import CONFIG
 from .utils.device import resolve_device
@@ -64,17 +70,13 @@ __all__ = [
     "compute_ciphertext", "bits_lsb_first", "generate_rand",
     "deserialize_proof", "serialize_proof", "Fr", "ZkAesError",
     "SynthesisError", "InvalidInputError", "CapacityError",
-    "SerializationError", "ProofError", "NotPortedError",
+    "SerializationError", "ProofError", "Mesh", "make_mesh",
 ]
 
 log = logging.getLogger(__name__)
 
 TEMPLATE_VERSION = 2   # 2: R1CS pickles its running nonzero counts
 INDEX_VERSION = 2   # 2: keys pickle this package's own vk classes
-
-
-class NotPortedError(ZkAesError, NotImplementedError):
-    """A capability of the JAX package that this package does not have yet."""
 
 
 @dataclass
@@ -85,6 +87,10 @@ class AESProvingKey:
     setup_times: dict = field(default_factory=dict)
     _prover: Optional[TorchProver] = None
     _witness: Optional[WitnessEvaluator] = None
+    # a mesh's prover, and each device's witness evaluator for mesh batches
+    _mesh_provers: Dict[Mesh, TorchProver] = field(default_factory=dict)
+    _witness_on: Dict[torch.device, WitnessEvaluator] = field(
+        default_factory=dict)
 
 
 def bits_lsb_first(data: bytes) -> List[int]:
@@ -269,15 +275,42 @@ def _witness_bits(tpl: Template, messages: Sequence[bytes], key: bytes,
     return inputs
 
 
-def _proving_state(proving_key: AESProvingKey):
-    """The key's witness evaluator and prover, made on first use."""
+def _check_mesh(mesh) -> None:
+    require(mesh is None or isinstance(mesh, Mesh), InvalidInputError,
+            f"mesh must be a parallel.mesh.Mesh (make_mesh), got "
+            f"{type(mesh).__name__}")
+
+
+def _proving_state(proving_key: AESProvingKey, mesh: Optional[Mesh] = None):
+    """The key's witness evaluator and its prover, or the mesh's prover,
+    made on first use and kept on the key."""
+    if mesh is not None:
+        require(mesh.first.type == proving_key.device.type,
+                InvalidInputError,
+                f"a mesh of {mesh.first.type} devices for a proving key on "
+                f"{proving_key.device}")
     if proving_key._witness is None:
         proving_key._witness = WitnessEvaluator(proving_key.template.plan,
                                                 proving_key.device)
+    if mesh is not None:
+        if mesh not in proving_key._mesh_provers:
+            proving_key._mesh_provers[mesh] = TorchProver(
+                proving_key.marlin_pk, mesh=mesh)
+        return proving_key._witness, proving_key._mesh_provers[mesh]
     if proving_key._prover is None:
         proving_key._prover = TorchProver(proving_key.marlin_pk,
                                           proving_key.device)
     return proving_key._witness, proving_key._prover
+
+
+def _evaluator_on(proving_key: AESProvingKey, device) -> WitnessEvaluator:
+    """The key's witness evaluator on `device`, made on first use."""
+    if device == proving_key.device:
+        return proving_key._witness
+    if device not in proving_key._witness_on:
+        proving_key._witness_on[device] = WitnessEvaluator(
+            proving_key.template.plan, device)
+    return proving_key._witness_on[device]
 
 
 def _prove_z(prover: TorchProver, tpl: Template, z: torch.Tensor, rng,
@@ -293,13 +326,14 @@ def encrypt(message: bytes, secret_key: bytes, proving_key: AESProvingKey,
             rng=None, zk: bool = True, iv: Optional[bytes] = None,
             mesh=None) -> MarlinProof:
     """Prove knowledge of (message, key) for the AES-128 ciphertext; CBC
-    proving keys take the public 16-byte iv."""
-    if mesh is not None:
-        raise NotPortedError("multi-device proving is not ported")
+    proving keys take the public 16-byte iv. With a `mesh`, the proof runs
+    on the mesh's prover (kept on the key, one a mesh) and equals the
+    single-device proof from the same rng."""
+    _check_mesh(mesh)
     rng = rng or generate_rand()
     tpl = proving_key.template
     _check_inputs(tpl, [message], secret_key, iv)
-    evaluator, prover = _proving_state(proving_key)
+    evaluator, prover = _proving_state(proving_key, mesh)
     z = evaluator.evaluate_batch(_witness_bits(tpl, [message], secret_key,
                                                iv))[0]
     return _prove_z(prover, tpl, z, rng, zk)
@@ -309,20 +343,26 @@ def encrypt_batch(messages: List[bytes], secret_key: bytes,
                   proving_key: AESProvingKey, rng=None, zk: bool = True,
                   mesh=None) -> List[MarlinProof]:
     """Prove independent messages under one key with an ECB proving key.
-    The witnesses are filled together in one batch; the proofs follow one
-    after another on the key's device, proof i from random.Random(seed i)
-    with the seeds drawn from `rng` first, as the JAX package draws them,
-    so a seeded batch gives its proofs."""
-    if mesh is not None:
-        raise NotPortedError("multi-device batches are not ported")
+    The witnesses are filled together in one batch (with a `mesh`, padded
+    to a multiple of its size and split across its devices, each filling
+    its chunk); the proofs follow one after another on the key's device, or
+    on the mesh's prover, proof i from random.Random(seed i) with the seeds
+    drawn from `rng` first, as the JAX package draws them, so a seeded
+    batch gives its proofs."""
+    _check_mesh(mesh)
     require(len(messages) > 0, InvalidInputError, "empty message batch")
     tpl = proving_key.template
     require(tpl.mode == "ecb", InvalidInputError,
             "encrypt_batch supports ECB proving keys (CBC chains blocks)")
     _check_inputs(tpl, messages, secret_key, None)
     rng = rng or generate_rand()
-    evaluator, prover = _proving_state(proving_key)
-    zs = evaluator.evaluate_batch(_witness_bits(tpl, messages, secret_key))
+    evaluator, prover = _proving_state(proving_key, mesh)
+    inputs = _witness_bits(tpl, messages, secret_key)
+    if mesh is None:
+        zs = evaluator.evaluate_batch(inputs)
+    else:
+        zs = evaluate_sharded(
+            mesh, lambda d: _evaluator_on(proving_key, d), inputs)
     seeds = [rng.randrange(1 << 62) for _ in messages]
     return [_prove_z(prover, tpl, z, random.Random(seed), zk)
             for z, seed in zip(zs, seeds)]

@@ -26,6 +26,10 @@
 //   700 W (scripts/time_field_ntt.py, PERF.md). Shared memory holds the
 //   tile as two planes of 16-byte halves, so neighbouring threads hit
 //   neighbouring banks.
+// Batch: `batch` independent transforms of 2^log_n rows lie back to back
+//   (the four-step NTT's rows, parallel/sharded_ntt.py); blockIdx.y picks
+//   the transform and offsets the tile by blockIdx.y << log_n. batch = 1
+//   is the single transform's launch.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -34,6 +38,7 @@ namespace {
 
 constexpr int kMaxPassLog = 10;     // tiles of at most 1024 elements (32 KB)
 constexpr int kThreads = 256;
+constexpr int kMaxBatch = 65535;   // gridDim.y
 
 ZK_DEV void tile_get(uint32_t* v, const uint4* tile, int T, int e) {
   uint4 lo = tile[e], hi = tile[T + e];
@@ -56,12 +61,13 @@ ntt_pass(const uint32_t* src, uint32_t* dst,   // may alias (in place)
   const long long lo = blockIdx.x & ((1LL << t0) - 1);
   const long long hi = (long long)blockIdx.x >> t0;
   const long long base = (hi << (t0 + s)) | lo;    // element 0 of the tile
+  const long long row = (long long)blockIdx.y << log_n;   // the transform
   uint32_t v[8];
 
   for (int e = threadIdx.x; e < T; e += blockDim.x) {
     long long g = base + ((long long)e << t0);
     if (bitrev) g = __brevll((unsigned long long)g) >> (64 - log_n);
-    zk_load_v<8>(v, src + g * 8);
+    zk_load_v<8>(v, src + (row + g) * 8);
     tile_put(tile, T, e, v);
   }
   __syncthreads();
@@ -96,27 +102,29 @@ ntt_pass(const uint32_t* src, uint32_t* dst,   // may alias (in place)
   for (int e = threadIdx.x; e < T; e += blockDim.x) {
     tile_get(v, tile, T, e);
     if (scale) zk_mul<Fr>(v, v, c);
-    zk_store_v<8>(dst + (base + ((long long)e << t0)) * 8, v);
+    zk_store_v<8>(dst + (row + base + ((long long)e << t0)) * 8, v);
   }
 }
 
 }  // namespace
 
-// One pass: stages t0 .. t0 + s - 1 of the DIT transform of 2^log_n Fr
-// elements ([n, 8] Montgomery limbs, 16-byte aligned), from src to dst
-// (the same array after the first pass; never the same with bitrev, which
-// reads src in bit-reversed order). tw: [n/2, 8] omega^j. scale: one
-// element every output is multiplied by, or null.
+// One pass: stages t0 .. t0 + s - 1 of the DIT transforms of `batch`
+// independent rows of 2^log_n Fr elements each ([batch, n, 8] Montgomery
+// limbs, 16-byte aligned), from src to dst (the same array after the first
+// pass; never the same with bitrev, which reads src in bit-reversed
+// order). tw: [n/2, 8] omega^j. scale: one element every output is
+// multiplied by, or null. batch <= kMaxBatch (gridDim.y).
 extern "C" int zk_ntt_pass(const void* src, void* dst, const void* tw,
                            const void* scale, int log_n, int t0, int s,
-                           int bitrev, void* stream) {
+                           int bitrev, int batch, void* stream) {
   if (log_n < 1 || log_n > 30 || s < 1 || s > kMaxPassLog || t0 < 0 ||
-      t0 + s > log_n || (bitrev && src == dst))
+      t0 + s > log_n || (bitrev && src == dst) || batch < 1 ||
+      batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
   const int T = 1 << s;
   const int threads = T / 2 < kThreads ? (T / 2 < 32 ? 32 : T / 2) : kThreads;
-  const unsigned tiles = (unsigned)(1LL << (log_n - s));
-  ntt_pass<<<tiles, threads, T * 32, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)(1LL << (log_n - s)), (unsigned)batch);
+  ntt_pass<<<grid, threads, T * 32, (cudaStream_t)stream>>>(
       (const uint32_t*)src, (uint32_t*)dst, (const uint32_t*)tw,
       (const uint32_t*)scale, log_n, t0, s, bitrev);
   return (int)cudaGetLastError();

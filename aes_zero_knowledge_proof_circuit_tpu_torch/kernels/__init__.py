@@ -9,7 +9,9 @@ kernel's registers and spills lands beside it (`resource_usage()`).
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.__call__` raises when that is not 0 and counts
-the launch otherwise. Nothing is built or loaded on the CPU path.
+the launch otherwise. It launches on the current CUDA device's stream, so
+the wrappers first hold their tensors to that device (`check_device`).
+Nothing is built or loaded on the CPU path.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ _SIGNATURES = {
     "zk_field_sub": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "zk_field_pow": [_P, _P, _P, _I, _LL, _I, _P],
     "zk_batch_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
-    "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "zk_msm_g1": [_P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P, _I, _P, _P],
     "zk_msm_u8": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
@@ -74,6 +76,20 @@ class Kernel:
         if err != 0:
             raise KernelError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += self.kernels_per_call
+
+
+def check_device(*tensors) -> None:
+    """Raise ValueError for a CUDA tensor that is not on the current CUDA
+    device: a kernel launches there, from raw pointers, and would read
+    another card's memory across the bus or fault. CPU tensors pass."""
+    import torch
+
+    for t in tensors:
+        if t.device.type == "cuda" and \
+                t.device.index != torch.cuda.current_device():
+            raise ValueError(f"tensor on {t.device}, but the current CUDA "
+                             f"device is cuda:{torch.cuda.current_device()}:"
+                             f" launch under torch.cuda.device({t.device})")
 
 
 class _Library:

@@ -17,6 +17,12 @@ msm_device). Left unset, ZKAES_MSM_MXU=0 selects "pallas", as it does in
 prover_jax. Each MSM leaves its point on the device; a batch of commitments
 comes to the host in one copy. The hiding terms stay on the host (two gamma
 powers), after the MSMs and in the same order, as in the reference.
+
+With a `mesh` (parallel/mesh.py), as JaxProver(mesh=...): the six
+transforms on the 4n domain run as the four-step sharded NTT and every MSM
+shards its points over the mesh, each device on its own replica of the
+SRS; the rest runs on the mesh's first device. Both are exact, so a mesh
+proof equals the single-device proof from the same rng byte for byte.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from ..ops.field_params import R_MOD, fr_multiplicative_generator
 from ..ops.msm import msm_point, xyzz_to_affine
 from ..ops.msm_device import DevicePoints, digit_limbs, msm_device_point
 from ..ops.poly_host import domain, poly_div_linear
+from ..parallel.mesh import Mesh, replicated
+from ..parallel.sharded_msm import msm_sharded
+from ..parallel.sharded_ntt import four_step_split, ntt_sharded
 from ..utils.device import resolve_device
 from ..utils.srs import device_powers
 from ..utils.transcript import Transcript
@@ -178,12 +187,25 @@ class _StageTimer:
 
 
 class TorchProver:
-    """Device-resident prover bound to one proving key and one device."""
+    """Device-resident prover bound to one proving key and one device, or
+    to a mesh (its first device holds the prover's state; `device`, if
+    given, must be that device)."""
 
-    def __init__(self, pk: MarlinProvingKey, device="cuda",
-                 msm_engine: Optional[str] = None):
+    def __init__(self, pk: MarlinProvingKey, device=None,
+                 msm_engine: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         self.pk = pk
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device or "cuda")
+        elif not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                             f"{type(mesh).__name__}")
+        elif device is not None and Mesh((device,)).first != mesh.first:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh.first}")
+        else:
+            self.device = mesh.first
+        self.mesh = mesh
         self.msm_engine = msm_engine or default_msm_engine()
         if self.msm_engine not in MSM_ENGINES:
             raise ValueError(f"msm_engine must be one of {MSM_ENGINES}, got "
@@ -197,6 +219,10 @@ class TorchProver:
         if points is None or points.device != dev:
             points = device_powers(pk.srs, dev)
         self.srs_dev = DevicePoints(points)
+        # the SRS on every mesh device, placed once (shards on one card
+        # share its copy)
+        self.srs_shards = None if mesh is None else [
+            DevicePoints(p) for p in replicated(mesh, points)]
         self.last_stage_times: dict = {}
         self.last_stage_memory: dict = {}
 
@@ -233,12 +259,35 @@ class TorchProver:
         cyc = [(pow(wn4, i, R_MOD) - 1) % R_MOD for i in range(4)]
         self.vh_on_h4 = F.from_ints(cyc, dev).repeat(h4.n // 4, 1)
 
+    # -- the 4n domain's transforms (four-step over the mesh, if any) -----------
+
+    def _ntt4(self, coeffs: torch.Tensor) -> torch.Tensor:
+        log_n4 = self.log_n + 2
+        if self.mesh is None:
+            return P.ntt_to(log_n4, coeffs)
+        return ntt_sharded(self.mesh, P.pad_to(coeffs, 1 << log_n4),
+                           *four_step_split(log_n4, self.mesh.size))
+
+    def _intt4(self, evals: torch.Tensor) -> torch.Tensor:
+        log_n4 = self.log_n + 2
+        if self.mesh is None:
+            return P.intt(log_n4, evals)
+        return ntt_sharded(self.mesh, evals,
+                           *four_step_split(log_n4, self.mesh.size),
+                           inverse=True)
+
     # -- commitments -------------------------------------------------------------
 
     def _msm(self, offset: int, coeffs: torch.Tensor) -> torch.Tensor:
-        """The commitment MSM as one XYZZ point [4, 12] on the device."""
-        points = self.srs_dev.slice(offset, coeffs.shape[0])
+        """The commitment MSM as one XYZZ point [4, 12] on the device
+        (sharded over the mesh, as prover_jax._msm_dev, when there is one)."""
         scalars = to_msm_digits(coeffs)
+        if self.mesh is not None:
+            return msm_sharded(
+                self.mesh, [s.slice(offset, coeffs.shape[0])
+                            for s in self.srs_shards], scalars,
+                self.msm_engine)
+        points = self.srs_dev.slice(offset, coeffs.shape[0])
         if self.msm_engine == "pallas":
             return msm_device_point(points, digit_limbs(scalars))
         return msm_point(points, scalars)
@@ -357,17 +406,16 @@ class TorchProver:
         w_vx = P.sub(torch.cat([P.zeros(x_size, dev), w_hat]), w_hat)
         z_coeffs = P.add(w_vx, x_poly)
 
-        log_n4 = log_n + 2
         denom4 = F.batch_inv(F.sub(alpha_s, self.h4_pows))
         r4 = F.mul(F.sub(P.scalar(v_h_alpha, dev), self.vh_on_h4), denom4)
         ea, eb, ec = (P.scalar(v, dev) for v in (eta_a, eta_b, eta_c))
-        za4 = P.ntt_to(log_n4, za_coeffs)
-        zb4 = P.ntt_to(log_n4, zb_coeffs)
+        za4 = self._ntt4(za_coeffs)
+        zb4 = self._ntt4(zb_coeffs)
         p4 = F.add(F.add(F.mul(ea, za4), F.mul(eb, zb4)),
                    F.mul(ec, F.mul(za4, zb4)))
-        q_acc = F.add(P.ntt_to(log_n4, s_coeffs), F.mul(r4, p4))
-        tz4 = F.mul(P.ntt_to(log_n4, t_coeffs), P.ntt_to(log_n4, z_coeffs))
-        q1 = P.intt(log_n4, F.sub(q_acc, tz4))
+        q_acc = F.add(self._ntt4(s_coeffs), F.mul(r4, p4))
+        tz4 = F.mul(self._ntt4(t_coeffs), self._ntt4(z_coeffs))
+        q1 = self._intt4(F.sub(q_acc, tz4))
         # the 4n-row temporaries go before the commits (2 GiB each at n =
         # 2^24)
         del denom4, r4, za4, zb4, p4, q_acc, tz4, w_vx, z_coeffs

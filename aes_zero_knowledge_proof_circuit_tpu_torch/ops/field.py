@@ -274,6 +274,7 @@ class FieldOps:
                 f"{tuple(x.shape)} {x.dtype}")
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no kernel for device {x.device}")
+        kernels.check_device(x)
 
     def _operands(self, a: torch.Tensor, b: torch.Tensor):
         self._check(a)

@@ -76,6 +76,7 @@ def fixed_base(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
         return plain_fixed_base(table, scalars)
     if scalars.device.type != "cuda":
         raise ValueError(f"no kernel for device {scalars.device}")
+    kernels.check_device(scalars)
     table, scalars = table.contiguous(), scalars.contiguous()
     out = torch.empty((scalars.shape[0], 4, FQ.L), dtype=torch.int32,
                       device=scalars.device)

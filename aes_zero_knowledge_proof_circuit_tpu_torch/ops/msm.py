@@ -239,6 +239,7 @@ def bucket_msm(points: torch.Tensor, idx: torch.Tensor, neg: torch.Tensor,
                                 c, wsums, first, ladder)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
+    kernels.check_device(points)
     for t, dt in ((idx, torch.int32), (neg, torch.uint8),
                   (offsets, torch.int64)):
         if t.dtype != dt or t.device != points.device or not t.is_contiguous():

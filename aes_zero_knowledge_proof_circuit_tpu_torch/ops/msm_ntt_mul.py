@@ -146,6 +146,7 @@ def ntt_mul(a_cols: torch.Tensor, b_cols: torch.Tensor) -> torch.Tensor:
         return plain_ntt_mul(a_cols, b_cols)
     if a_cols.device.type != "cuda":
         raise ValueError(f"no kernel for device {a_cols.device}")
+    kernels.check_device(a_cols)
     n = a_cols.shape[1]
     pad = -n % 4
     if pad:

@@ -188,6 +188,7 @@ def scan_msm(points: torch.Tensor, plan: Landing,
         return plain_scan_msm(points, plan, wsums=wsums, ladder=ladder)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
+    kernels.check_device(points)
     for t, dt in ((plan.idx, torch.int32), (plan.first, torch.int64),
                   (plan.merge_prefix, torch.int64)):
         if t.dtype != dt or t.device != points.device or not t.is_contiguous():

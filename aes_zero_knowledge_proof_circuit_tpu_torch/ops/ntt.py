@@ -8,7 +8,9 @@ spaced 2^t0 apart (`pass_widths` splits log2 n evenly: two passes from 2^11
 to 2^20). The first pass reads its input in bit-reversed order; the last
 multiplies by 1/n in the inverse transform. Every stage's twiddles are
 strided reads of ONE [n/2, 8] table of omega powers, built once per size on
-the tensor's device.
+the tensor's device. `ntt_rows` / `intt_rows` transform a batch [B, n, 8]
+of independent rows in the same launches (the four-step NTT's passes,
+parallel/sharded_ntt.py).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .field import aligned, fr_ops
 
 F = fr_ops()
 PASS_LOG = 10          # stages a pass: tiles of 2^10 elements, 32 KB
+MAX_BATCH = 65535      # rows one K2 launch takes (gridDim.y, csrc/ntt.cu)
 
 
 def pass_widths(log_n: int, pass_log: int = PASS_LOG) -> List[int]:
@@ -51,10 +54,13 @@ def plain_pass(src: torch.Tensor, table: torch.Tensor, log_n: int, t0: int,
                s: int, bitrev: bool, scale=None) -> torch.Tensor:
     """One pass in plain PyTorch, the same function as K2's: stages t0 ..
     t0 + s - 1 on tiles [hi, mid, lo] = [n / 2^(t0+s), 2^s, 2^t0] of the
-    input (read in bit-reversed order if `bitrev`), then the scale."""
+    input (read in bit-reversed order if `bitrev`), then the scale. The
+    input is [n, 8] or a batch [B, n, 8] of independent rows."""
     n = 1 << log_n
-    x = src[_bitrev(log_n, str(src.device))] if bitrev else src.clone()
-    tiles = x.view(n >> (t0 + s), 1 << s, 1 << t0, F.L)
+    x = src[..., _bitrev(log_n, str(src.device)), :] if bitrev else \
+        src.clone()
+    lead = x.shape[:-2]
+    tiles = x.view(*lead, n >> (t0 + s), 1 << s, 1 << t0, F.L)
     lo = torch.arange(1 << t0, device=x.device)
     for u in range(s):
         h = 1 << u
@@ -62,12 +68,12 @@ def plain_pass(src: torch.Tensor, table: torch.Tensor, log_n: int, t0: int,
         # twiddle omega^(j n / 2^(t0+u+1)), table row j (n >> (t0+u+1))
         j = (torch.arange(h, device=x.device)[:, None] << t0) | lo[None, :]
         tw = table[j * (n >> (t0 + u + 1))]              # [h, 2^t0, 8]
-        g = tiles.view(tiles.shape[0], (1 << s) // (2 * h), 2, h, 1 << t0,
-                       F.L)
-        left = g[:, :, 0].clone()
-        prod = F.plain_mul(g[:, :, 1], tw)
-        g[:, :, 0] = F.plain_add(left, prod)
-        g[:, :, 1] = F.plain_sub(left, prod)
+        g = tiles.view(*lead, n >> (t0 + s), (1 << s) // (2 * h), 2, h,
+                       1 << t0, F.L)
+        left = g.select(-4, 0).clone()
+        prod = F.plain_mul(g.select(-4, 1), tw)
+        g.select(-4, 0).copy_(F.plain_add(left, prod))
+        g.select(-4, 1).copy_(F.plain_sub(left, prod))
     if scale is not None:
         x = F.plain_mul(x, scale)
     return x
@@ -75,11 +81,14 @@ def plain_pass(src: torch.Tensor, table: torch.Tensor, log_n: int, t0: int,
 
 def ntt_pass(src: torch.Tensor, dst: torch.Tensor, table: torch.Tensor,
              log_n: int, t0: int, s: int, bitrev: bool, scale=None) -> None:
-    """K2 wrapper: one pass from src into dst ([n, 8] int32 on the card,
-    16-byte aligned; src is dst after the first pass)."""
+    """K2 wrapper: one pass from src into dst ([n, 8], or [B, n, 8] with B
+    at most MAX_BATCH, int32 on the current card, 16-byte aligned; src is
+    dst after the first pass): one launch."""
+    kernels.check_device(src, dst, table,
+                         *(() if scale is None else (scale,)))
     kernels.ntt_pass(src.data_ptr(), dst.data_ptr(), table.data_ptr(),
                      None if scale is None else scale.data_ptr(), log_n, t0,
-                     s, int(bitrev))
+                     s, int(bitrev), src.numel() >> (log_n + 3))
 
 
 class NTTEngine:
@@ -99,11 +108,15 @@ class NTTEngine:
                                 half)
         self.n_inv = scalar(pow(self.n, -1, R_MOD), self.device)
 
-    def _check(self, x: torch.Tensor) -> None:
-        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != F.L:
-            raise ValueError(f"expected [n, 8] int32, got {tuple(x.shape)}")
-        if x.shape[0] != self.n:
-            raise ValueError(f"NTT of size {self.n} given {x.shape[0]} rows")
+    def _check(self, x: torch.Tensor, rows: bool = False) -> None:
+        dims = 3 if rows else 2
+        if x.dtype != torch.int32 or x.dim() != dims or x.shape[-1] != F.L:
+            shape = "[B, n, 8]" if rows else "[n, 8]"
+            raise ValueError(f"expected {shape} int32, got {tuple(x.shape)}")
+        if x.shape[-2] != self.n:
+            raise ValueError(f"NTT of size {self.n} given {x.shape[-2]} rows")
+        if rows and x.shape[0] > MAX_BATCH:
+            raise ValueError(f"{x.shape[0]} rows exceed K2's {MAX_BATCH}")
 
     def _passes(self):
         """(t0, s, first, last) of each pass."""
@@ -112,10 +125,11 @@ class NTTEngine:
             yield t0, s, i == 0, i == len(self.widths) - 1
             t0 += s
 
-    def _run(self, x: torch.Tensor, table: torch.Tensor, scale) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, table: torch.Tensor, scale,
+             rows: bool = False) -> torch.Tensor:
         if x.device.type == "cpu":
-            return self._run_plain(x, table, scale)
-        self._check(x)
+            return self._run_plain(x, table, scale, rows)
+        self._check(x, rows)
         if x.device.type != "cuda" or table.device != x.device:
             raise ValueError(f"no kernel for {x.device} / table on "
                              f"{table.device}")
@@ -128,8 +142,8 @@ class NTTEngine:
                      first, scale if last else None)
         return out
 
-    def _run_plain(self, x, table, scale) -> torch.Tensor:
-        self._check(x)
+    def _run_plain(self, x, table, scale, rows: bool = False) -> torch.Tensor:
+        self._check(x, rows)
         if self.log_n == 0:
             return x.clone()
         for t0, s, first, last in self._passes():
@@ -144,12 +158,25 @@ class NTTEngine:
     def intt(self, evals: torch.Tensor) -> torch.Tensor:
         return self._run(evals, self.inv_table, self.n_inv)
 
+    def ntt_rows(self, coeffs: torch.Tensor) -> torch.Tensor:
+        """[B, n, 8]: the NTT of every row, in the launches of one NTT."""
+        return self._run(coeffs, self.fwd_table, None, rows=True)
+
+    def intt_rows(self, evals: torch.Tensor) -> torch.Tensor:
+        return self._run(evals, self.inv_table, self.n_inv, rows=True)
+
     def ntt_plain(self, coeffs: torch.Tensor) -> torch.Tensor:
         """The same transform through the plain passes (any device)."""
         return self._run_plain(coeffs, self.fwd_table, None)
 
     def intt_plain(self, evals: torch.Tensor) -> torch.Tensor:
         return self._run_plain(evals, self.inv_table, self.n_inv)
+
+    def ntt_rows_plain(self, coeffs: torch.Tensor) -> torch.Tensor:
+        return self._run_plain(coeffs, self.fwd_table, None, rows=True)
+
+    def intt_rows_plain(self, evals: torch.Tensor) -> torch.Tensor:
+        return self._run_plain(evals, self.inv_table, self.n_inv, rows=True)
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,17 +7,19 @@ x, y and s from z, evaluate the 7-coefficient multiply-add
 
 and scatter into z. All values are bits, so the whole fill is int32 tensor
 work; the plan's index arrays are uploaded once per evaluator. A batch of
-witnesses is one [B, num_vars] tensor, filled level by level together.
+witnesses is one [B, num_vars] tensor, filled level by level together;
+`evaluate_sharded` splits a batch over a mesh's devices.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
 from ..models.witness_plan import CompiledPlan
+from ..parallel.mesh import Mesh, on_device, shard_leading
 from ..utils.device import resolve_device
 
 
@@ -49,18 +51,19 @@ class WitnessEvaluator:
             {k: np.asarray(v, np.int32)[None] for k, v in inputs.items()})[0]
 
     def evaluate_batch(self, inputs: Dict[str, np.ndarray]) -> torch.Tensor:
-        """inputs: source name -> [B, bits] 0/1 bits, one row a witness.
+        """inputs: source name -> [B, bits] 0/1 bits (arrays, or tensors
+        on any device), one row a witness.
         Returns z [B, num_vars] int32 on the evaluator's device: the plan's
         levels walked once for the whole batch, gathering and scattering
         along the last axis (the JAX package vmaps its evaluator)."""
-        rows = {np.asarray(v).shape[0] for v in inputs.values()}
+        rows = {np.shape(v)[0] for v in inputs.values()}
         if len(rows) != 1:
             raise ValueError(f"inputs disagree on the batch size: {rows}")
         z = torch.zeros((rows.pop(), self.plan.num_vars), dtype=torch.int32,
                         device=self.device)
         z[:, 0] = 1
         for name, (idx, slot) in self.inputs.items():
-            bits = torch.as_tensor(np.asarray(inputs[name], np.int32),
+            bits = torch.as_tensor(inputs[name], dtype=torch.int32,
                                    device=self.device)
             z[:, idx] = bits[:, slot]
         for out, xi, yi, si, c in self.levels:
@@ -70,3 +73,25 @@ class WitnessEvaluator:
         inst_idx, inst_c, inst_var, inst_q = self.inst
         z[:, inst_idx] = inst_c + inst_q * z[:, inst_var]
         return z
+
+
+def evaluate_sharded(mesh: Mesh,
+                     evaluator_on: Callable[[torch.device], WitnessEvaluator],
+                     inputs: Dict[str, np.ndarray]) -> List[torch.Tensor]:
+    """A batch's witnesses filled data-parallel over a mesh, as the JAX
+    package shards its vmapped fill: every input padded with zero rows to a
+    multiple of the mesh size and cut into contiguous chunks
+    (`shard_leading`), device i filling chunk i with evaluator_on(device i).
+    Returns the batch's witnesses [num_vars] in order, each on the device
+    that filled it; the padding's are dropped."""
+    batch = {np.shape(v)[0] for v in inputs.values()}
+    if len(batch) != 1:
+        raise ValueError(f"inputs disagree on the batch size: {batch}")
+    chunks = {k: shard_leading(mesh, torch.as_tensor(np.asarray(v, np.int32)))
+              for k, v in inputs.items()}
+    out: List[torch.Tensor] = []
+    for i, d in enumerate(mesh.devices):
+        with on_device(d):
+            out += list(evaluator_on(d).evaluate_batch(
+                {k: c[i] for k, c in chunks.items()}))
+    return out[:batch.pop()]

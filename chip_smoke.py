@@ -73,7 +73,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    block, a serialization round trip, the card's peak memory in the
    proves; then K3 and K4 at the key's 2^22 + 1 SRS points against the
    native Pippenger;
-11. 1KB: synthesize_keys(1024) (64 ECB blocks: n = 2^24, matrices of
+11. mesh: a mesh of 4 shards on cuda:(i mod the card count) (all four on
+   one card, or one a card on four), with the cards' peer access: batched
+   K2 (the four-step NTT's rows) against its batched plain version at the
+   shard shapes of 2^20, 2^22 and 2^26, and timed at 2^26's; ntt_sharded
+   against the single-device NTT at 2^20, 2^22 and 2^26 both ways;
+   msm_sharded against the one-device MSM (K3 at the 64-byte key's 2^22 +
+   1 SRS points, K4 at 2^20); encrypt(mesh=) on the 16- and 64-byte keys
+   (K3) and on the 16-byte key's K4 engine, a cold and a warm proof each,
+   with stages, launches and each card's peak memory, each proof equal
+   byte for byte to the single-device proof from its seed, verified and a
+   flipped bit rejected; encrypt_batch(mesh=) of four 16-byte messages,
+   each proof equal to encrypt's from its seed and verified; then
+   parallel.dryrun.dryrun_multichip(4);
+12. 1KB: synthesize_keys(1024) (64 ECB blocks: n = 2^24, matrices of
    2^24, 2^24 and 2^25, the index committed on K4 in window groups,
    round-2 and round-3 cosets and SRS of 2^26), a cold and a warm zk
    proof on the K3 engine and a warm one on the K4 engine with stage times
@@ -82,7 +95,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    memory before and over the proves; then K3 and K4 at 2^25 + 1 SRS
    points equal to each other, and K3 at the key's 2^26 + 1 points equal
    to the sum of K3 over its two halves;
-12. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
+13. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
    setup on the SRS checkpoint truncated to degree n + 8, a cold and a warm
    zk proof on the card (TorchPlonkProver: the 2^21 coset transforms on K2,
    every commitment on K3) with stage times, verified on the host, and
@@ -90,11 +103,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gates whose proof on the card equals the host prover's field for field.
 
 Each path (ntt_mul, srs, main; and each index and prove of cbc, batch, 32B,
-64B, 1KB and plonk) runs with the launch counts set to 0 just before it and
-read just after; every kernel must have launched in the path that uses it
-(K1, K2 and K3 in each prove, K1, K2 and K4 in each index, K1 and K6 in the
-SRS generation), and the JSON `launches` entry is the main path's count
-(K5's from the ntt_mul path, K6's from the srs path).
+64B, mesh, 1KB and plonk) runs with the launch counts set to 0 just before
+it and read just after; every kernel must have launched in the path that
+uses it (K1, K2 and K3 in each prove, K1, K2 and K4 in each index, K1 and
+K6 in the SRS generation), and the JSON `launches` entry is the main
+path's count (K5's from the ntt_mul path, K6's from the srs path);
+`mesh_launches` is the count over the mesh phase's proves and batch.
 
 The run sets PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless it is
 set already, and uses a cache directory of its own (templates, SRS, keys,
@@ -149,6 +163,19 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.ops.curve_host import (
     g1_generator,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
+from aes_zero_knowledge_proof_circuit_tpu_torch.parallel import (
+    sharded_ntt as SN,
+)
+from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.dryrun import (
+    dryrun_multichip,
+)
+from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.mesh import (
+    make_mesh,
+    replicated,
+)
+from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.sharded_msm import (
+    msm_sharded,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.plonk import backend as plonk
 from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.aes_map import (
     AesPlonkCircuit,
@@ -916,7 +943,8 @@ def warm_prove(pk, label: str):
 def pallas_engine_key(pk, message: bytes = MESSAGE, tag: str = "main"):
     """A proving key whose prover commits on the K4 engine, chosen the way
     a user chooses it: ZKAES_MSM_MXU=0 when the prover is made."""
-    pk4 = dataclasses.replace(pk, _prover=None, _witness=None)
+    pk4 = dataclasses.replace(pk, _prover=None, _witness=None,
+                              _mesh_provers={}, _witness_on={})
     old = os.environ.get("ZKAES_MSM_MXU")
     os.environ["ZKAES_MSM_MXU"] = "0"
     try:
@@ -1264,7 +1292,7 @@ def gib(nbytes: int) -> str:
     return f"{nbytes / 2**30:.2f} GiB"
 
 
-def phase_64b(dev) -> None:
+def phase_64b(dev):
     """Four 16-byte ECB blocks (n = 2^20, largest matrix k = 2^21, round-3
     cosets and SRS of 2^22, the reference's own SRS capacity): the key, a
     cold and a warm zk proof on the K3 engine and a warm one on the K4
@@ -1326,6 +1354,226 @@ def phase_64b(dev) -> None:
     engines_agree(vk, pk, pk4, message, ct, "64B")
     del pk4
     check_native(pk, dev, "64B")
+    return pk, vk
+
+
+MESH_SHARDS = 4
+
+
+def batched_k2(dev, mesh) -> str:
+    """Batched K2 (ntt_rows, intt_rows) against its batched plain version
+    at the four-step shard shapes of the 16-byte, 64-byte and 1 KB 4n
+    domains (both passes of each take the same shape: the splits are
+    even), bit-exact; the 1 KB shape timed against its bound."""
+    f = fr_ops()
+    gen = np.random.default_rng(11)
+    shapes = []
+    for log_nn in (20, 22, 26):
+        log_n1, log_n2 = SN.four_step_split(log_nn, mesh.size)
+        rows, log_n = (1 << log_n1) // mesh.size, log_n2
+        eng = ntt_engine(log_n, dev)
+        x = random_elements(f, rows * eng.n - 4, gen, dev).view(
+            rows, eng.n, f.L)
+        err = max(max_abs_err(eng.ntt_rows(x), eng.ntt_rows_plain(x)),
+                  max_abs_err(eng.intt_rows(x), eng.intt_rows_plain(x)))
+        if err:
+            raise AssertionError(f"batched K2 [{rows}, 2^{log_n}]: err {err}")
+        shapes.append(f"[{rows}, 2^{log_n}]")
+    kernels.reset_counts()
+    eng.ntt_rows(x)
+    launches = kernels.launch_counts()["ntt"]
+    k, _ = events_ms(lambda: eng.ntt_rows(x))
+    p, _ = timed(lambda: eng.ntt_rows_plain(x), reps=1)
+    flat = ntt_engine((rows * eng.n).bit_length() - 1, dev)
+    single, _ = events_ms(lambda: flat.ntt(x.view(-1, f.L)))
+    elements = rows * eng.n
+    bound = {}
+    set_bound(bound, (2 * elements + eng.n // 2) * 32,
+              elements // 2 * log_n * FR_PRODUCT)
+    say(f"[mesh] batched K2 (ntt_rows, intt_rows) at the shard shapes "
+        f"{shapes} of 2^20, 2^22, 2^26 vs batched plain: bit-exact; "
+        f"[{rows}, 2^{log_n}]: kernel {k:.4f} ms (events, {launches} "
+        f"launches, passes {eng.widths}), bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}), plain {p:.1f} ms (one run); one "
+        f"2^{flat.log_n}-point NTT of the same elements {single:.4f} ms "
+        f"[{CARD}]")
+    return shapes
+
+
+def sharded_ntts(dev, mesh) -> None:
+    """ntt_sharded against the single-device K2 NTT at 2^20, 2^22 and
+    2^26, forward and inverse, bit-exact, each timed once (synchronized)."""
+    f = fr_ops()
+    gen = np.random.default_rng(12)
+    times = []
+    for log_nn in (20, 22, 26):
+        split = SN.four_step_split(log_nn, mesh.size)
+        eng = ntt_engine(log_nn, dev)
+        x = random_elements(f, eng.n - 4, gen, dev)
+        for inverse in (False, True):
+            one, want = timed(lambda: eng.intt(x) if inverse else eng.ntt(x),
+                              reps=1)
+            # the first call builds the shards' twiddles: time the second
+            SN.ntt_sharded(mesh, x, *split, inverse=inverse)
+            ms, got = timed(lambda: SN.ntt_sharded(mesh, x, *split,
+                                                   inverse=inverse), reps=1)
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"ntt_sharded 2^{log_nn} (inverse "
+                                     f"{inverse}): err {err}")
+            times.append(f"2^{log_nn} {'inverse' if inverse else 'forward'} "
+                         f"{ms:.2f} ms (one device {one:.2f} ms)")
+        del x, want, got
+        SN._twiddles.cache_clear()
+        torch.cuda.empty_cache()
+    say(f"[mesh] ntt_sharded (split {SN.four_step_split(26, mesh.size)} at "
+        f"2^26) equals the single-device K2 NTT bit for bit: "
+        + "; ".join(times) + f" [{CARD}]")
+
+
+def sharded_msms(dev, mesh, points) -> None:
+    """msm_sharded against the one-device MSM: K3 at the 64-byte key's
+    2^22 + 1 SRS points, K4 at 2^20; the points placed on every card
+    first, each side timed by the median of 3 after a warm-up call (the
+    first launch on a card loads the kernels there)."""
+    replicas = replicated(mesh, points)
+    out = []
+    for engine, n in (("mxu", points.shape[0]), ("pallas", 1 << 20)):
+        scalars = device_scalars(n, 13, dev)
+        if engine == "mxu":
+            one = lambda: M.msm_point(points, scalars)
+        else:
+            one = lambda: MD.msm_device_point(points, MD.digit_limbs(scalars))
+        sharded = lambda: msm_sharded(mesh, replicas, scalars, engine)
+        one()
+        sharded()
+        one_ms, want = timed(one)
+        ms, got = timed(sharded)
+        if point_err(M.xyzz_to_affine(got)[0], M.xyzz_to_affine(want)[0]):
+            raise AssertionError(f"msm_sharded ({engine}) at {n} points "
+                                 f"differs from the one-device MSM")
+        out.append(f"{'K3' if engine == 'mxu' else 'K4'} at {n} points "
+                   f"{ms:.1f} ms (one device {one_ms:.1f} ms)")
+    say("[mesh] msm_sharded equals the one-device MSM (medians of 3 after a "
+        "warm-up): " + "; ".join(out) + f" [{CARD}]")
+
+
+def device_peaks(mesh) -> str:
+    return ", ".join(f"{d} {gib(torch.cuda.max_memory_allocated(d))}"
+                     for d in dict.fromkeys(mesh.devices))
+
+
+def mesh_proves(pk, vk, mesh, message: bytes, tag: str, seeds, engine_path,
+                launches: dict) -> None:
+    """A cold and a warm zk proof through encrypt(mesh=) (the warm one with
+    its stages, launches and each card's peak memory), each byte-equal to
+    the single-device proof from its seed, verified on the host, a flipped
+    bit of the last ciphertext block rejected."""
+    ct = api.compute_ciphertext(message, KEY)
+    for label, seed in zip(("cold", "warm"), seeds):
+        for d in dict.fromkeys(mesh.devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        proof, counts, secs = counted(
+            lambda: api.encrypt(message, KEY, pk, rng=random.Random(seed),
+                                mesh=mesh), engine_path,
+            f"the {label} {tag} mesh prove")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        prover = pk._mesh_provers[mesh]
+        say(f"[mesh] {label} {tag} prove on the mesh (zk, "
+            f"{'K4' if prover.msm_engine == 'pallas' else 'K3'} engine): "
+            f"{secs:.3f}s; stages "
+            + ", ".join(f"{k} {v:.3f}s"
+                        for k, v in prover.last_stage_times.items())
+            + f"; launches {counts}; peak memory {device_peaks(mesh)} "
+            f"[{CARD}]")
+        t0 = time.perf_counter()
+        single = api.encrypt(message, KEY, pk, rng=random.Random(seed))
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        if api.serialize_proof(single) != api.serialize_proof(proof):
+            raise AssertionError(f"the {tag} mesh proof differs from the "
+                                 f"single-device proof")
+    if not api.verify_encryption(vk, proof, ct):
+        raise AssertionError(f"the {tag} mesh proof does not verify")
+    if api.verify_encryption(vk, proof, flipped(ct, len(ct) - 16)):
+        raise AssertionError(f"a flipped ciphertext bit still verifies "
+                             f"({tag} mesh proof)")
+    say(f"[mesh] {tag}: both mesh proofs equal the single-device proofs "
+        f"byte for byte (single-device warm {one_s:.3f}s); verifies; "
+        f"flipped bit in the last block rejected")
+
+
+def phase_mesh(results: dict, dev, pk16, vk16, pk64, vk64) -> None:
+    """A mesh of MESH_SHARDS shards on cuda:(i mod the card count): batched
+    K2 against its plain version, ntt_sharded and msm_sharded against one
+    device, encrypt(mesh=) at 16 and 64 bytes on K3 and at 16 bytes on K4,
+    each proof byte-equal to the single-device one, verified and
+    tamper-rejected; encrypt_batch(mesh=) of four 16-byte messages, each
+    proof equal to encrypt's from its seed; then dryrun_multichip. The
+    launches of the mesh proves and the batch are the JSON's
+    mesh_launches."""
+    count = torch.cuda.device_count()
+    mesh = make_mesh(devices=[torch.device("cuda", i % count)
+                              for i in range(MESH_SHARDS)])
+    cards = list(dict.fromkeys(mesh.devices))
+    peers = {f"{a.index}->{b.index}": torch.cuda.can_device_access_peer(a, b)
+             for a in cards for b in cards if a != b}
+    say(f"[mesh] {mesh.size} shards on {[str(d) for d in mesh.devices]}; "
+        f"peer access {peers or 'none needed (one card)'} [{CARD}]")
+    batched_k2(dev, mesh)
+    sharded_ntts(dev, mesh)
+    sharded_msms(dev, mesh, pk64._prover.srs_dev.points)
+
+    launches = {}
+    mesh_proves(pk16, vk16, mesh, MESSAGE, "16B", (30, 31), PROVE_PATH,
+                launches)
+    mesh_proves(pk64, vk64, mesh, bytes(range(64)), "64B", (32, 33),
+                PROVE_PATH, launches)
+    pk4 = dataclasses.replace(pk16, _prover=None, _witness=None,
+                              _mesh_provers={}, _witness_on={})
+    old = os.environ.get("ZKAES_MSM_MXU")
+    os.environ["ZKAES_MSM_MXU"] = "0"
+    try:
+        mesh_proves(pk4, vk16, mesh, MESSAGE, "16B K4-engine", (34, 35),
+                    ("fr_ops", "ntt", "msm_u8"), launches)
+    finally:
+        if old is None:
+            os.environ.pop("ZKAES_MSM_MXU")
+        else:
+            os.environ["ZKAES_MSM_MXU"] = old
+    if pk4._mesh_provers[mesh].msm_engine != "pallas":
+        raise AssertionError("ZKAES_MSM_MXU=0 did not select the K4 engine")
+    del pk4
+
+    messages = [bytes(range(i, i + 16)) for i in (0, 40, 80, 120)]
+    proofs, counts, secs = counted(
+        lambda: api.encrypt_batch(messages, KEY, pk16, rng=random.Random(36),
+                                  mesh=mesh), PROVE_PATH, "the mesh batch")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    draw = random.Random(36)
+    for i, (m, seed) in enumerate(zip(messages, [draw.randrange(1 << 62)
+                                                 for _ in messages])):
+        single = api.encrypt(m, KEY, pk16, rng=random.Random(seed))
+        if api.serialize_proof(single) != api.serialize_proof(proofs[i]):
+            raise AssertionError(f"mesh batch proof {i} differs from "
+                                 f"encrypt() with its seed")
+        if not api.verify_encryption(vk16, proofs[i],
+                                     api.compute_ciphertext(m, KEY)):
+            raise AssertionError(f"mesh batch proof {i} does not verify")
+    say(f"[mesh] encrypt_batch(mesh=) of {len(messages)} 16-byte messages: "
+        f"{secs:.3f}s; launches {counts}; each proof equals encrypt() from "
+        f"its seed and verifies [{CARD}]")
+    for name in results:
+        results[name]["mesh_launches"] = launches.get(name, 0)
+    require_launched(launches, ("fr_ops", "ntt", "msm", "msm_u8"),
+                     "the mesh proves")
+    say(f"[mesh] launches in the mesh proves and the batch: {launches}")
+    pk16._mesh_provers.clear()
+    pk64._mesh_provers.clear()
+    dryrun_multichip(MESH_SHARDS, "cuda", say=lambda line: say(
+        f"[mesh] {line}"))
 
 
 def device_scalars(n: int, seed: int, dev) -> torch.Tensor:
@@ -1593,13 +1841,17 @@ def run(smi: str, job: subprocess.Popen) -> None:
     timed_phase("cbc", phase_cbc, dev)
     timed_phase("batch", phase_batch, pk, vk)
     timed_phase("32B", phase_32b, dev)
-    timed_phase("64B", phase_64b, dev)
+    pk64, vk64 = timed_phase("64B", phase_64b, dev)
+    timed_phase("mesh", phase_mesh, results, dev, pk, vk, pk64, vk64)
+    del pk64, vk64
+    torch.cuda.empty_cache()
     timed_phase("1KB", phase_1kb, dev)
     torch.cuda.empty_cache()
     timed_phase("plonk", phase_plonk, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "mesh_launches")
     for entry in results.values():
         missing = [k for k in keys if k not in entry]
         if missing:

@@ -1,18 +1,23 @@
 """Profile one warm prove of the PyTorch port on a CUDA card.
 
     python3 scripts/profile_torch_prove.py [--bytes 16] [--mode ecb]
-        [--warm 3] [--out FILE]
+        [--warm 3] [--mesh N] [--out FILE]
 
 Builds the proving key on the card (`synthesize_keys(BYTES, mode=MODE,
 device="cuda")`, cached on disk after the first run; a CBC key proves with
 a fixed iv), runs `--warm` unprofiled proves of a BYTES-long message, then
-one prove under `torch.profiler` with CPU and CUDA activities. It prints:
+one prove under `torch.profiler` with CPU and CUDA activities. With
+`--mesh N` those proves run on a mesh of N shards on the visible cards
+(cuda:(i mod their count), `encrypt(mesh=)`): first one prove on the key's
+card alone, kept as the reference, then its prover is dropped and the mesh
+proves from the same seed, which must equal it byte for byte. It prints:
 
 - the card's name and power limit (nvidia-smi), the key's shapes and the
   warm prove seconds;
 - the profiled prove's wall seconds and stage times;
 - device busy seconds (the union of every device kernel and copy interval)
-  and the device's idle share of the prove's wall time, and the peak
+  and the device's idle share of the prove's wall time (with a mesh, over
+  all its cards, and each card's busy seconds), and each card's peak
   device memory in the profiled prove;
 - one `[group]` line per kernel family (K1, K2, each MSM kernel, torch's
   scan and sort kernels, the rest): device ms, launches and share, each
@@ -40,6 +45,9 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from aes_zero_knowledge_proof_circuit_tpu_torch import api  # noqa: E402
+from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.mesh import (  # noqa: E402
+    make_mesh,
+)
 
 KEY = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
 IV = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
@@ -80,12 +88,17 @@ def busy_us(intervals) -> float:
     return total
 
 
-def prove(pk, message: bytes, iv, seed: int):
+def prove(pk, message: bytes, iv, seed: int, mesh=None):
     t0 = time.perf_counter()
     proof = api.encrypt(message, KEY, pk, rng=random.Random(seed), zk=True,
-                        iv=iv)
-    torch.cuda.synchronize()
+                        iv=iv, mesh=mesh)
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
     return proof, time.perf_counter() - t0
+
+
+def stage_text(stages: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}s" for k, v in stages.items())
 
 
 def main() -> int:
@@ -94,6 +107,8 @@ def main() -> int:
                     help="message length, a multiple of 16")
     ap.add_argument("--mode", choices=("ecb", "cbc"), default="ecb")
     ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="prove on a mesh of this many shards (0: no mesh)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -111,39 +126,67 @@ def main() -> int:
     print(f"synthesize_keys({args.bytes}, mode={args.mode!r}): "
           f"{time.perf_counter() - t0:.1f}s; n=2^{pk.marlin_pk.log_n}, "
           f"k=2^{max(vk.log_ks)}, SRS degree {vk.max_degree}", flush=True)
-    prove(pk, message, iv, 0)                     # cold prove
-    warm = [prove(pk, message, iv, 1 + i)[1] for i in range(args.warm)]
+    ct = api.compute_ciphertext(message, KEY, iv=iv)
+    reference, secs = prove(pk, message, iv, 0)           # cold prove
+    mesh = None
+    if args.mesh:
+        print(f"cold prove on {dev} alone: {secs:.3f}s; stages "
+              f"{stage_text(pk._prover.last_stage_times)}", flush=True)
+        pk._prover = None                 # its state would double the card's
+        torch.cuda.empty_cache()
+        mesh = make_mesh(args.mesh, "cuda")
+        proof, secs = prove(pk, message, iv, 0, mesh)
+        if api.serialize_proof(proof) != api.serialize_proof(reference):
+            raise AssertionError("the mesh proof differs from the "
+                                 "single-card proof from the same seed")
+        if not api.verify_encryption(vk, proof, ct, iv=iv):
+            raise AssertionError("the mesh proof does not verify")
+        print(f"cold prove on the mesh {[str(d) for d in mesh.devices]}: "
+              f"{secs:.3f}s, equal byte for byte to the single-card proof, "
+              f"verifies; stages "
+              f"{stage_text(pk._mesh_provers[mesh].last_stage_times)}",
+              flush=True)
+    warm = [prove(pk, message, iv, 1 + i, mesh)[1] for i in range(args.warm)]
     print("warm proves (s): " + ", ".join(f"{s:.3f}" for s in warm)
           + (f"; median {statistics.median(warm):.3f}" if warm else ""))
 
-    torch.cuda.reset_peak_memory_stats(dev)
+    cards = range(torch.cuda.device_count()) if mesh else [dev.index]
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        proof, wall = prove(pk, message, iv, 100)
-    ct = api.compute_ciphertext(message, KEY, iv=iv)
+        proof, wall = prove(pk, message, iv, 100, mesh)
     if not api.verify_encryption(vk, proof, ct, iv=iv):
         raise AssertionError("the profiled proof does not verify")
-    stages = pk._prover.last_stage_times
+    prover = pk._mesh_provers[mesh] if mesh else pk._prover
     print(f"profiled prove: {wall:.3f}s wall, verifies; stages "
-          + ", ".join(f"{k} {v:.3f}s" for k, v in stages.items()))
+          + stage_text(prover.last_stage_times))
 
     per_name = defaultdict(lambda: [0.0, 0])
     intervals = []
+    per_card = defaultdict(list)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         s, t = e.time_range.start, e.time_range.end
         intervals.append((s, t))
+        per_card[e.device_index].append((s, t))
         per_name[e.name][0] += t - s
         per_name[e.name][1] += 1
     busy = busy_us(intervals) / 1e6
     if busy <= 0:
         raise AssertionError("the trace holds no device time")
     device_ms = sum(v[0] for v in per_name.values()) / 1e3
+    peaks = ", ".join(
+        f"cuda:{d} {torch.cuda.max_memory_allocated(d) / 2**30:.2f} GiB"
+        for d in cards)
     print(f"device busy {busy:.4f}s of {wall:.4f}s wall: idle "
           f"{100 * (1 - busy / wall):.1f} %; device time summed over "
-          f"kernels {device_ms:.3f} ms; peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+          f"kernels {device_ms:.3f} ms; peak device memory {peaks}")
+    if mesh:
+        print("busy by card: " + ", ".join(
+            f"cuda:{d} {busy_us(iv_) / 1e6:.4f}s"
+            for d, iv_ in sorted(per_card.items())))
 
     groups = defaultdict(lambda: [0.0, 0])
     for name, (us, calls) in per_name.items():

@@ -1,5 +1,5 @@
 """The port's API surface: what it accepts, the typed errors for invalid
-input and for what it does not do yet (meshes), and the entry points'
+input (a mesh that is not a port Mesh among them), and the entry points'
 device: the CUDA card unless the caller asks for the CPU, never a quiet
 fallback."""
 
@@ -66,9 +66,10 @@ def test_entry_points_default_to_cuda(entry):
     lambda: api.encrypt_batch([MSG], KEY, None, mesh=object()),
 ], ids=["mesh", "batch-mesh"])
 def test_not_ported_paths_raise_typed_error(call):
-    with pytest.raises(api.NotPortedError):
+    """A mesh that is not a parallel.mesh.Mesh is invalid input, refused
+    before the proving key is read."""
+    with pytest.raises(api.InvalidInputError, match="mesh must be"):
         call()
-    assert issubclass(api.NotPortedError, api.ZkAesError)
 
 
 def key_for(mode: str) -> api.AESProvingKey:

@@ -80,6 +80,46 @@ def test_k2_matches_plain(cuda):
     assert torch.equal(eng.intt(eng.ntt(x)), x)
 
 
+@pytest.mark.parametrize("log_n,batch", [(1, 3), (10, 256), (11, 7),
+                                         (13, 64)])
+def test_k2_batched_matches_plain(cuda, log_n, batch):
+    """ntt_rows / intt_rows over [batch, 2^log_n, 8] (the four-step NTT's
+    shard shapes) in the launches of one transform, equal to the plain
+    passes over the batch and to the transform of each row."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch import kernels
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.ntt import ntt_engine
+
+    eng = ntt_engine(log_n, cuda)
+    x = _elements(fr_ops(), batch << log_n, 6, cuda).view(batch, 1 << log_n,
+                                                          8)
+    kernels.reset_counts()
+    y = eng.ntt_rows(x)
+    assert kernels.launch_counts()["ntt"] == len(eng.widths)
+    assert torch.equal(y, eng.ntt_rows_plain(x))
+    assert torch.equal(eng.intt_rows(x), eng.intt_rows_plain(x))
+    for b in (0, batch - 1):
+        assert torch.equal(y[b], eng.ntt(x[b]))
+
+
+def test_mesh_prove_on_one_card(cuda, tmp_path, monkeypatch):
+    """dryrun_multichip(4) with the four shards on this card: the sharded
+    NTT and MSMs (K1, K2, K3, K4) against the host, the data-parallel fill,
+    and a toy-circuit mesh proof equal to the single-device one."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch import api, kernels
+    from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+
+    monkeypatch.setattr(api.CONFIG, "cache_dir", str(tmp_path))
+    lines = []
+    kernels.reset_counts()
+    dryrun_multichip(4, "cuda", say=lines.append)
+    counts = kernels.launch_counts()
+    assert all(counts[k] for k in ("fr_ops", "ntt", "msm", "msm_u8"))
+    assert "equals the single-device one" in lines[-1]
+
+
 @pytest.mark.parametrize("log_n", [1, 10, 11, 12, 13, 21])
 def test_k2_passes_match_plain(cuda, log_n):
     """Forward and inverse (1/n folded into the last pass) on each side of

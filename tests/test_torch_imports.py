@@ -5,7 +5,8 @@ function.
 * every module (and chip_smoke.py) is imported in a fresh interpreter where
   both `import jax` and `import aes_zero_knowledge_proof_circuit_tpu` fail;
 * an AST scan of every source file of the port, chip_smoke.py and the
-  card scripts (profile_torch_prove.py, reckon_1kb.py, time_field_ntt.py)
+  card scripts (profile_torch_prove.py, mesh_smoke.py,
+  time_sharded_msm.py, reckon_1kb.py, time_field_ntt.py)
   finds no import that names either;
 * the toy circuit is built, indexed, proved (zk=False, CPU) and verified by
   the port alone in such an interpreter;
@@ -45,6 +46,8 @@ def scanned_files():
     files = sorted(Path(port.__path__[0]).rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "profile_torch_prove.py",
+                    ROOT / "scripts" / "mesh_smoke.py",
+                    ROOT / "scripts" / "time_sharded_msm.py",
                     ROOT / "scripts" / "reckon_1kb.py",
                     ROOT / "scripts" / "time_field_ntt.py"]
 
