@@ -21,7 +21,8 @@ ported: ECB, and CBC with a public 16-byte iv. `mesh=` takes a
 `parallel.mesh.Mesh` (`make_mesh`) of devices of the key's type: one call
 drives every device, the prover's 4n-domain transforms and MSMs sharded
 over the mesh (marlin/prover.py), and `encrypt_batch` fills the witnesses
-data-parallel over it; the proofs equal the single-device ones.
+data-parallel over it, then proves each on the key's device, as the JAX
+package does; the proofs equal the single-device ones.
 """
 
 from __future__ import annotations
@@ -275,20 +276,21 @@ def _witness_bits(tpl: Template, messages: Sequence[bytes], key: bytes,
     return inputs
 
 
-def _check_mesh(mesh) -> None:
+def _check_mesh(mesh, proving_key: AESProvingKey) -> None:
+    """`mesh` is None, or a port Mesh of devices of the key's type."""
     require(mesh is None or isinstance(mesh, Mesh), InvalidInputError,
             f"mesh must be a parallel.mesh.Mesh (make_mesh), got "
             f"{type(mesh).__name__}")
-
-
-def _proving_state(proving_key: AESProvingKey, mesh: Optional[Mesh] = None):
-    """The key's witness evaluator and its prover, or the mesh's prover,
-    made on first use and kept on the key."""
     if mesh is not None:
         require(mesh.first.type == proving_key.device.type,
                 InvalidInputError,
                 f"a mesh of {mesh.first.type} devices for a proving key on "
                 f"{proving_key.device}")
+
+
+def _proving_state(proving_key: AESProvingKey, mesh: Optional[Mesh] = None):
+    """The key's witness evaluator and its prover, or the mesh's prover,
+    made on first use and kept on the key."""
     if proving_key._witness is None:
         proving_key._witness = WitnessEvaluator(proving_key.template.plan,
                                                 proving_key.device)
@@ -329,7 +331,7 @@ def encrypt(message: bytes, secret_key: bytes, proving_key: AESProvingKey,
     proving keys take the public 16-byte iv. With a `mesh`, the proof runs
     on the mesh's prover (kept on the key, one a mesh) and equals the
     single-device proof from the same rng."""
-    _check_mesh(mesh)
+    _check_mesh(mesh, proving_key)
     rng = rng or generate_rand()
     tpl = proving_key.template
     _check_inputs(tpl, [message], secret_key, iv)
@@ -345,18 +347,18 @@ def encrypt_batch(messages: List[bytes], secret_key: bytes,
     """Prove independent messages under one key with an ECB proving key.
     The witnesses are filled together in one batch (with a `mesh`, padded
     to a multiple of its size and split across its devices, each filling
-    its chunk); the proofs follow one after another on the key's device, or
-    on the mesh's prover, proof i from random.Random(seed i) with the seeds
-    drawn from `rng` first, as the JAX package draws them, so a seeded
-    batch gives its proofs."""
-    _check_mesh(mesh)
+    its chunk). The proofs follow one after another on the key's own
+    prover and device, mesh or not, as in the JAX package: proof i from
+    random.Random(seed i) with the seeds drawn from `rng` first, so a
+    seeded batch gives its proofs."""
+    _check_mesh(mesh, proving_key)
     require(len(messages) > 0, InvalidInputError, "empty message batch")
     tpl = proving_key.template
     require(tpl.mode == "ecb", InvalidInputError,
             "encrypt_batch supports ECB proving keys (CBC chains blocks)")
     _check_inputs(tpl, messages, secret_key, None)
     rng = rng or generate_rand()
-    evaluator, prover = _proving_state(proving_key, mesh)
+    evaluator, prover = _proving_state(proving_key)
     inputs = _witness_bits(tpl, messages, secret_key)
     if mesh is None:
         zs = evaluator.evaluate_batch(inputs)
@@ -364,7 +366,8 @@ def encrypt_batch(messages: List[bytes], secret_key: bytes,
         zs = evaluate_sharded(
             mesh, lambda d: _evaluator_on(proving_key, d), inputs)
     seeds = [rng.randrange(1 << 62) for _ in messages]
-    return [_prove_z(prover, tpl, z, random.Random(seed), zk)
+    return [_prove_z(prover, tpl, z.to(proving_key.device),
+                     random.Random(seed), zk)
             for z, seed in zip(zs, seeds)]
 
 

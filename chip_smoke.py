@@ -53,19 +53,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    byte; then, outside the counted run, the nine index commitments
    recomputed on K3, and K3 and K4 at the key's 2^20 + 1 SRS points
    against the native Pippenger;
-7. cbc: synthesize_keys(16, mode="cbc"), a cold and a warm zk proof with
+7. entry: the flagship forward step (`entry.py`, the counterpart of
+   `__graft_entry__.entry()`) on the card over the cached 16-byte
+   template: for the FIPS-197 vector, all-zero, all-one and a seeded pair,
+   the ciphertext bits equal the AES oracle's and the R1CS residual is 0;
+   a flipped witness bit (round 1, the key schedule, the ciphertext) makes
+   the residual non-zero; the warm forward's milliseconds;
+8. cbc: synthesize_keys(16, mode="cbc"), a cold and a warm zk proof with
    its iv, verification, rejection of a flipped ciphertext bit and of a
    flipped iv bit, a serialization round trip;
-8. batch: encrypt_batch of two messages on the main path's key under a
+9. batch: encrypt_batch of two messages on the main path's key under a
    seeded rng; each proof verifies against its own ciphertext and not the
    other's, and proof i equals encrypt(m_i) from Random(seed i) byte for
    byte, the seeds drawn as the JAX package draws them;
-9. 32B: synthesize_keys(32, mode="cbc") (n = 2^19, the index committed on
+10. 32B: synthesize_keys(32, mode="cbc") (n = 2^19, the index committed on
    K4 over up to 2^21 points), a cold and a warm zk proof with stage times,
    verification, rejection of a flipped bit in the second ciphertext block;
    then K3 and K4 at the key's 2^21 + 1 SRS points against the native
    Pippenger;
-10. 64B: synthesize_keys(64) (four ECB blocks: n = 2^20, the index
+11. 64B: synthesize_keys(64) (four ECB blocks: n = 2^20, the index
    committed on K4 over up to 2^21 points, round-3 cosets and SRS of 2^22),
    a cold and a warm zk proof on the K3 engine and a warm one on the K4
    engine with stage times, zk=False proofs on both engines equal byte for
@@ -73,7 +79,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    block, a serialization round trip, the card's peak memory in the
    proves; then K3 and K4 at the key's 2^22 + 1 SRS points against the
    native Pippenger;
-11. mesh: a mesh of 4 shards on cuda:(i mod the card count) (all four on
+12. mesh: a mesh of 4 shards on cuda:(i mod the card count) (all four on
    one card, or one a card on four), with the cards' peer access: batched
    K2 (the four-step NTT's rows) against its batched plain version at the
    shard shapes of 2^20, 2^22 and 2^26, and timed at 2^26's; ntt_sharded
@@ -83,10 +89,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (K3) and on the 16-byte key's K4 engine, a cold and a warm proof each,
    with stages, launches and each card's peak memory, each proof equal
    byte for byte to the single-device proof from its seed, verified and a
-   flipped bit rejected; encrypt_batch(mesh=) of four 16-byte messages,
-   each proof equal to encrypt's from its seed and verified; then
-   parallel.dryrun.dryrun_multichip(4);
-12. 1KB: synthesize_keys(1024) (64 ECB blocks: n = 2^24, matrices of
+   flipped bit rejected; encrypt_batch(mesh=) of four 16-byte messages
+   (the fill on the mesh, the proofs on the key's own prover: no mesh
+   prover is made), each proof equal to encrypt's from its seed and
+   verified; then parallel.dryrun.dryrun_multichip(4);
+13. 1KB: synthesize_keys(1024) (64 ECB blocks: n = 2^24, matrices of
    2^24, 2^24 and 2^25, the index committed on K4 in window groups,
    round-2 and round-3 cosets and SRS of 2^26), a cold and a warm zk
    proof on the K3 engine and a warm one on the K4 engine with stage times
@@ -95,7 +102,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    memory before and over the proves; then K3 and K4 at 2^25 + 1 SRS
    points equal to each other, and K3 at the key's 2^26 + 1 points equal
    to the sum of K3 over its two halves;
-13. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
+14. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
    setup on the SRS checkpoint truncated to degree n + 8, a cold and a warm
    zk proof on the card (TorchPlonkProver: the 2^21 coset transforms on K2,
    every commitment on K3) with stage times, verified on the host, and
@@ -108,7 +115,9 @@ it and read just after; every kernel must have launched in the path that
 uses it (K1, K2 and K3 in each prove, K1, K2 and K4 in each index, K1 and
 K6 in the SRS generation), and the JSON `launches` entry is the main
 path's count (K5's from the ntt_mul path, K6's from the srs path);
-`mesh_launches` is the count over the mesh phase's proves and batch.
+`mesh_launches` is the count over the mesh phase's proves and batch. The
+entry path's forward step is torch work alone (the witness fill and
+`index_add_`): its counts are printed and must be 0.
 
 The run sets PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless it is
 set already, and uses a cache directory of its own (templates, SRS, keys,
@@ -142,6 +151,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from aes_zero_knowledge_proof_circuit_tpu_torch import api, kernels
+from aes_zero_knowledge_proof_circuit_tpu_torch import entry as E
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import (
     to_msm_digits,
 )
@@ -159,6 +169,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import (
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import R_MOD
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import pairing_host as PH
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import poly as P
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops.aes_host import encrypt_ecb
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.curve_host import (
     g1_generator,
 )
@@ -1029,6 +1040,82 @@ def phase_main_path(results: dict, dev) -> None:
     return pk, vk
 
 
+# the (message, key) pairs of the entry path, those of
+# tests/test_torch_entry.py: FIPS-197 appendix B (and its ciphertext),
+# all-zero, all-one, and a pair drawn by numpy from a seed
+FIPS_PLAINTEXT = bytes.fromhex("3243f6a8885a308d313198a2e0370734")
+FIPS_CIPHERTEXT = bytes.fromhex("3925841d02dc09fbdc118597196a0b32")
+ENTRY_PAIRS = {
+    "fips197": (FIPS_PLAINTEXT, KEY),
+    "zeros": (bytes(16), bytes(16)),
+    "ones": (b"\xff" * 16, b"\xff" * 16),
+    "seeded": tuple(np.random.default_rng(2026).integers(
+        0, 256, 16, dtype=np.uint8).tobytes() for _ in range(2)),
+}
+
+
+def phase_entry(dev) -> None:
+    """entry.entry() on the card over the cached 16-byte template: the
+    ciphertext bits of every pair equal the AES oracle's with residual 0,
+    a flipped witness bit gives a non-zero residual, and the warm
+    forward's milliseconds (median of 10, synchronized)."""
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    forward, args = E.entry(dev)
+    setup_s = time.perf_counter() - t0
+    for name, (message, key) in ENTRY_PAIRS.items():
+        ct_bits, residual = forward(
+            torch.tensor(api.bits_lsb_first(message), dtype=torch.int32,
+                         device=dev),
+            torch.tensor(api.bits_lsb_first(key), dtype=torch.int32,
+                         device=dev))
+        ct = bytes(encrypt_ecb(message, key))
+        if ct_bits.device != dev or ct_bits.tolist() != \
+                api.bits_lsb_first(ct):
+            raise AssertionError(f"entry: the {name} ciphertext bits differ "
+                                 f"from the AES oracle's")
+        if int(residual) != 0:
+            raise AssertionError(f"entry: the {name} residual is "
+                                 f"{int(residual)}, not 0")
+    if bytes(encrypt_ecb(*ENTRY_PAIRS["fips197"])) != FIPS_CIPHERTEXT:
+        raise AssertionError("entry: the AES oracle misses FIPS-197")
+    warm_ms, _ = timed(lambda: forward(*args), reps=10)
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"entry: the forward step launched {counts}")
+
+    tpl = api._template_cached(16)
+    stages = {name: st["num_witness_variables"]
+              for name, st in tpl.stage_log}
+    n_inst, n_cons = tpl.r1cs.num_instance, tpl.r1cs.num_constraints
+    positions = {
+        "round 1": n_inst + (stages["block 0: after add_round_key round 0"]
+                             + stages["block 0: after round 1"]) // 2,
+        "key schedule": n_inst + (stages["After allocating the secret key"]
+                                  + stages["After deriving the round keys"])
+        // 2,
+        "ciphertext": 1 + 77,
+    }
+    message, key = ENTRY_PAIRS["fips197"]
+    z = api.WitnessEvaluator(tpl.plan, dev).evaluate(
+        {"message": np.asarray(api.bits_lsb_first(message), np.int32),
+         "key": np.asarray(api.bits_lsb_first(key), np.int32)})
+    coo = E.coo_on(tpl.r1cs, dev)
+    flips = {}
+    for label, i in positions.items():
+        bad = z.clone()
+        bad[i] = 1 - bad[i]
+        flips[label] = int(E.r1cs_residual(coo, bad, n_cons))
+        if flips[label] == 0:
+            raise AssertionError(f"entry: a flipped {label} bit (z[{i}]) "
+                                 f"leaves the residual 0")
+    say(f"[entry] entry() on {dev}: {setup_s:.1f}s to build (template "
+        f"cached); {len(ENTRY_PAIRS)} pairs ({', '.join(ENTRY_PAIRS)}) give "
+        f"the AES oracle's ciphertext bits with residual 0; flipped witness "
+        f"bits give residuals {flips}; warm forward {warm_ms:.2f} ms "
+        f"(median of 10); launches {counts} [{CARD}]")
+
+
 def round_trip(vk, proof, ct: bytes, iv=None) -> int:
     """Serialize, deserialize and verify a proof; its length in bytes."""
     blob = api.serialize_proof(proof)
@@ -1547,9 +1634,13 @@ def phase_mesh(results: dict, dev, pk16, vk16, pk64, vk64) -> None:
     del pk4
 
     messages = [bytes(range(i, i + 16)) for i in (0, 40, 80, 120)]
+    mesh_provers = dict(pk16._mesh_provers)
     proofs, counts, secs = counted(
         lambda: api.encrypt_batch(messages, KEY, pk16, rng=random.Random(36),
                                   mesh=mesh), PROVE_PATH, "the mesh batch")
+    if pk16._mesh_provers != mesh_provers:
+        raise AssertionError("encrypt_batch(mesh=) made or replaced a mesh "
+                             "prover; it proves on the key's own")
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     draw = random.Random(36)
@@ -1563,8 +1654,10 @@ def phase_mesh(results: dict, dev, pk16, vk16, pk64, vk64) -> None:
                                      api.compute_ciphertext(m, KEY)):
             raise AssertionError(f"mesh batch proof {i} does not verify")
     say(f"[mesh] encrypt_batch(mesh=) of {len(messages)} 16-byte messages: "
-        f"{secs:.3f}s; launches {counts}; each proof equals encrypt() from "
-        f"its seed and verifies [{CARD}]")
+        f"{secs:.3f}s ({secs / len(messages):.3f}s a proof; the fill on the "
+        f"mesh, the proofs on the key's prover, mesh provers unchanged); "
+        f"launches {counts}; each proof equals encrypt() from its seed and "
+        f"verifies [{CARD}]")
     for name in results:
         results[name]["mesh_launches"] = launches.get(name, 0)
     require_launched(launches, ("fr_ops", "ntt", "msm", "msm_u8"),
@@ -1838,6 +1931,7 @@ def run(smi: str, job: subprocess.Popen) -> None:
     timed_phase("ntt_mul", phase_ntt_mul, results, gen, dev)
     timed_phase("srs", phase_srs, results, job, dev)
     pk, vk = timed_phase("main", phase_main_path, results, dev)
+    timed_phase("entry", phase_entry, dev)
     timed_phase("cbc", phase_cbc, dev)
     timed_phase("batch", phase_batch, pk, vk)
     timed_phase("32B", phase_32b, dev)

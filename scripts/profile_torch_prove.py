@@ -10,7 +10,8 @@ one prove under `torch.profiler` with CPU and CUDA activities. With
 `--mesh N` those proves run on a mesh of N shards on the visible cards
 (cuda:(i mod their count), `encrypt(mesh=)`): first one prove on the key's
 card alone, kept as the reference, then its prover is dropped and the mesh
-proves from the same seed, which must equal it byte for byte. It prints:
+proves from the same seed, which must equal it byte for byte, verify, and
+fail against a flipped bit of the last ciphertext block. It prints:
 
 - the card's name and power limit (nvidia-smi), the key's shapes and the
   warm prove seconds;
@@ -19,6 +20,10 @@ proves from the same seed, which must equal it byte for byte. It prints:
   and the device's idle share of the prove's wall time (with a mesh, over
   all its cards, and each card's busy seconds), and each card's peak
   device memory in the profiled prove;
+- the zk mask draw of one prove timed alone (`marlin/prover._rand_mont` at
+  2n + 1 elements on the key's card: the host's seeded bytes, numpy, the
+  copy and two K1 products; the bytes alone beside it), next to the
+  profiled prove's `r1_commits`, the stage that holds it;
 - one `[group]` line per kernel family (K1, K2, each MSM kernel, torch's
   scan and sort kernels, the rest): device ms, launches and share, each
   the sum of the `[kernel]` lines whose names it matches;
@@ -45,6 +50,9 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from aes_zero_knowledge_proof_circuit_tpu_torch import api  # noqa: E402
+from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import (  # noqa: E402
+    prover as marlin_prover,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.mesh import (  # noqa: E402
     make_mesh,
 )
@@ -97,6 +105,26 @@ def prove(pk, message: bytes, iv, seed: int, mesh=None):
     return proof, time.perf_counter() - t0
 
 
+def mask_draw_text(log_n: int, dev, r1_commits: float) -> str:
+    """The prover's zk mask draw (2n + 1 elements) timed alone on `dev`,
+    and the seeded bytes it draws, beside the stage that holds it."""
+    count = 2 * (1 << log_n) + 1
+    total = count * marlin_prover.RAND_BYTES
+    draw = random.Random(7)
+    t0 = time.perf_counter()
+    for i in range(0, total, marlin_prover.RAND_CHUNK):
+        draw.randbytes(min(marlin_prover.RAND_CHUNK, total - i))
+    bytes_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    marlin_prover._rand_mont(random.Random(7), count, dev)
+    torch.cuda.synchronize(dev)
+    mask_s = time.perf_counter() - t0
+    return (f"zk mask draw alone (_rand_mont, {count} elements on {dev}): "
+            f"{mask_s:.3f}s, of which the seeded bytes {bytes_s:.3f}s; "
+            f"r1_commits of the profiled prove {r1_commits:.3f}s")
+
+
 def stage_text(stages: dict) -> str:
     return ", ".join(f"{k} {v:.3f}s" for k, v in stages.items())
 
@@ -141,9 +169,13 @@ def main() -> int:
                                  "single-card proof from the same seed")
         if not api.verify_encryption(vk, proof, ct, iv=iv):
             raise AssertionError("the mesh proof does not verify")
+        bad = bytearray(ct)
+        bad[-16] ^= 1                     # a bit of the last block
+        if api.verify_encryption(vk, proof, bytes(bad), iv=iv):
+            raise AssertionError("the mesh proof verifies a flipped bit")
         print(f"cold prove on the mesh {[str(d) for d in mesh.devices]}: "
               f"{secs:.3f}s, equal byte for byte to the single-card proof, "
-              f"verifies; stages "
+              f"verifies, a flipped bit of the last block rejected; stages "
               f"{stage_text(pk._mesh_provers[mesh].last_stage_times)}",
               flush=True)
     warm = [prove(pk, message, iv, 1 + i, mesh)[1] for i in range(args.warm)]
@@ -187,6 +219,9 @@ def main() -> int:
         print("busy by card: " + ", ".join(
             f"cuda:{d} {busy_us(iv_) / 1e6:.4f}s"
             for d, iv_ in sorted(per_card.items())))
+    # after the peaks are read: the draw allocates on the card
+    print(mask_draw_text(pk.marlin_pk.log_n, dev,
+                         prover.last_stage_times["r1_commits"]), flush=True)
 
     groups = defaultdict(lambda: [0.0, 0])
     for name, (us, calls) in per_name.items():

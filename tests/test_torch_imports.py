@@ -13,7 +13,9 @@ function.
 * so are the CBC and batch paths of the API: the 16-byte CBC template, its
   batched witness fill with an iv, `encrypt(iv=...)` up to the prover,
   `verify_encryption(iv=...)` up to the verifier and `encrypt_batch`'s
-  checks."""
+  checks;
+* and the forward step of `entry.py` on the CPU: the 16-byte template's
+  ciphertext bits and residual 0."""
 
 import ast
 import os
@@ -62,7 +64,7 @@ def test_module_list_covers_the_slice():
                  "models.aes_circuit", "ops.kzg", "utils.serialize",
                  "utils.transcript", "utils.device", "plonk",
                  "plonk.circuit", "plonk.aes_map", "plonk.backend",
-                 "plonk.prover"):
+                 "plonk.prover", "entry"):
         assert f"{port.__name__}.{leaf}" in names
 
 
@@ -207,3 +209,32 @@ def test_cbc_and_batch_paths_without_the_jax_package(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("cbc paths ran")
+
+
+ENTRY = BLOCK + """
+import torch
+from aes_zero_knowledge_proof_circuit_tpu_torch import api
+from aes_zero_knowledge_proof_circuit_tpu_torch.entry import entry
+from aes_zero_knowledge_proof_circuit_tpu_torch.ops.aes_host import encrypt_ecb
+
+forward, (msg, key) = entry(device="cpu")
+message, secret = bytes(range(16)), bytes(range(16, 32))
+ct_bits, residual = forward(torch.tensor(api.bits_lsb_first(message)),
+                            torch.tensor(api.bits_lsb_first(secret)))
+assert ct_bits.tolist() == api.bits_lsb_first(bytes(encrypt_ecb(message,
+                                                                secret)))
+assert int(residual) == 0
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m == "jax" or m.startswith(("jax.", "jaxlib", "aes_zero_knowledge_proof_circuit_tpu."))))
+assert not loaded, loaded
+print("forward step ran")
+"""
+
+
+def test_entry_without_the_jax_package(tmp_path):
+    env = dict(os.environ, ZKAES_CACHE_DIR=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", ENTRY], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("forward step ran")

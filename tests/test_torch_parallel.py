@@ -280,30 +280,50 @@ def test_sharded_witness_fill_equals_one_device(ecb16, batch):
 
 
 class Recorder:
-    """Stands in for a prover: returns what it was handed."""
+    """Stands in for a prover: returns what it was handed, and keeps it."""
+
+    def __init__(self):
+        self.calls = []
 
     def prove(self, instance, witness, rng=None, zk=True):
-        return (list(instance), np.asarray(witness).tolist(), rng.getstate(),
-                zk)
+        got = (list(instance), np.asarray(witness).tolist(), rng.getstate(),
+               zk)
+        self.calls.append(got)
+        return got
+
+
+class MustNotProve:
+    """Stands in for a mesh's prover that encrypt_batch must not call."""
+
+    def prove(self, *args, **kwargs):
+        raise AssertionError("encrypt_batch(mesh=) proved on the mesh")
 
 
 def test_encrypt_batch_on_a_mesh_hands_its_prover_the_single_device_inputs(
         ecb16):
     """encrypt_batch(mesh=) of 3 messages on a mesh of 2 (padded to 4):
-    the mesh's prover gets the instances, witnesses and per-proof rngs that
-    the single-device batch hands the key's prover, and encrypt(mesh=)
-    proves through the same mesh prover."""
+    the fill runs on the mesh, and the key's own prover gets the instances,
+    witnesses and per-proof rngs that the single-device batch hands it; the
+    mesh's prover is never called, and a mesh without one gets none made.
+    encrypt(mesh=) proves through the mesh's prover."""
     gen = np.random.default_rng(12)
     messages = [gen.integers(0, 256, 16, dtype=np.uint8).tobytes()
                 for _ in range(3)]
     mesh = make_mesh(2, "cpu")
+    key_prover = Recorder()
     pk = api.AESProvingKey(marlin_pk=None, template=ecb16,
-                           device=torch.device("cpu"), _prover=Recorder())
-    pk._mesh_provers[mesh] = Recorder()
+                           device=torch.device("cpu"), _prover=key_prover)
+    pk._mesh_provers[mesh] = MustNotProve()
     want = api.encrypt_batch(messages, KEY, pk, rng=random.Random(5))
+    assert key_prover.calls == want and len(want) == 3
     got = api.encrypt_batch(messages, KEY, pk, rng=random.Random(5),
                             mesh=mesh)
-    assert got == want
+    assert got == want and key_prover.calls == want + want
+    fresh = make_mesh(3, "cpu")
+    assert api.encrypt_batch(messages, KEY, pk, rng=random.Random(5),
+                             mesh=fresh) == want
+    assert list(pk._mesh_provers) == [mesh]     # no mesh prover was made
+    pk._mesh_provers[mesh] = Recorder()
     pk._prover = None
     assert api.encrypt(messages[1], KEY, pk, rng=random.Random(9),
                        mesh=mesh) == Recorder().prove(
