@@ -22,7 +22,10 @@ ported: ECB, and CBC with a public 16-byte iv. `mesh=` takes a
 drives every device, the prover's 4n-domain transforms and MSMs sharded
 over the mesh (marlin/prover.py), and `encrypt_batch` fills the witnesses
 data-parallel over it, then proves each on the key's device, as the JAX
-package does; the proofs equal the single-device ones.
+package does; the proofs equal the single-device ones. `encrypt_batch`
+keeps two proofs in flight, one CUDA stream each, where the JAX package's
+rule (4 or more host cores) and the card's free memory allow it
+(`pipeline_depth`).
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ import hashlib
 import logging
 import os
 import pickle
+import queue
 import random
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -42,7 +47,7 @@ import torch
 from .marlin import indexer as _indexer
 from .marlin import verifier as _verifier
 from .marlin.indexer import MarlinProvingKey, MarlinVerifyingKey
-from .marlin.prover import MarlinProof, TorchProver
+from .marlin.prover import MarlinProof, TorchProver, proof_bytes
 from .models.aes_circuit import Template, build_template
 from .ops import kzg
 from .ops.aes_host import encrypt_cbc, encrypt_ecb
@@ -92,6 +97,9 @@ class AESProvingKey:
     _mesh_provers: Dict[Mesh, TorchProver] = field(default_factory=dict)
     _witness_on: Dict[torch.device, WitnessEvaluator] = field(
         default_factory=dict)
+    # encrypt_batch's two CUDA streams, one a proof in flight, made on first
+    # use: the allocator keeps the blocks a stream freed for that stream
+    _streams: Tuple = ()
 
 
 def bits_lsb_first(data: bytes) -> List[int]:
@@ -341,16 +349,86 @@ def encrypt(message: bytes, secret_key: bytes, proving_key: AESProvingKey,
     return _prove_z(prover, tpl, z, rng, zk)
 
 
+def pipeline_depth(cores: int, proof_bytes: int, free_bytes: int) -> int:
+    """How many proofs `encrypt_batch` keeps in flight: two, the JAX
+    package's pipeline, on a host of 4 or more cores (its rule) where two
+    proofs' working sets, `proof_bytes` each, fit in the `free_bytes` of
+    the card; else one. (On an 80 GB card the memory rule keeps a 1 KB
+    key to one: two of its proofs do not fit beside the key.)"""
+    return 2 if cores >= 4 and 2 * proof_bytes <= free_bytes else 1
+
+
+def _batch_depth(proving_key: AESProvingKey, prover: TorchProver,
+                 batch: int) -> int:
+    """pipeline_depth for a batch on the key's device: on a card, from the
+    prover's reckoned working set and the card's free memory (what the
+    allocator holds unused counted free); a CPU key's proofs live in host
+    memory, so only the host's cores count there."""
+    if batch < 2:
+        return 1
+    cores = os.cpu_count() or 1
+    dev = proving_key.device
+    if dev.type != "cuda":
+        return pipeline_depth(cores, 0, 0)
+    free, _total = torch.cuda.mem_get_info(dev)
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return pipeline_depth(
+        cores, proof_bytes(prover.log_n, prover.d_max, prover.msm_engine),
+        free)
+
+
+def _prove_pipelined(proving_key: AESProvingKey, prover: TorchProver,
+                     tpl: Template, zs, seeds, zk: bool) -> List[MarlinProof]:
+    """Proof i of zs[i] from random.Random(seeds[i]), two at a time in two
+    threads on the one prover, in message order (the JAX package's
+    `ThreadPoolExecutor(max_workers=2)`). On a card each proof in flight
+    runs on one of the key's two streams, after the calling stream's fill;
+    a proof that fails first lets its stream finish, and its error comes
+    out here once the other proof has ended."""
+    dev = proving_key.device
+    if dev.type == "cuda":
+        if not proving_key._streams:
+            proving_key._streams = (torch.cuda.Stream(dev),
+                                    torch.cuda.Stream(dev))
+        filled = torch.cuda.Event()
+        filled.record(torch.cuda.current_stream(dev))
+        free = queue.SimpleQueue()
+        for s in proving_key._streams:
+            free.put(s)
+
+    def one(i: int) -> MarlinProof:
+        if dev.type != "cuda":
+            return _prove_z(prover, tpl, zs[i], random.Random(seeds[i]), zk)
+        s = free.get()
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(s):
+                s.wait_event(filled)
+                zs[i].record_stream(s)
+                return _prove_z(prover, tpl, zs[i], random.Random(seeds[i]),
+                                zk)
+        finally:
+            s.synchronize()
+            free.put(s)
+
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        return list(ex.map(one, range(len(zs))))
+
+
 def encrypt_batch(messages: List[bytes], secret_key: bytes,
                   proving_key: AESProvingKey, rng=None, zk: bool = True,
                   mesh=None) -> List[MarlinProof]:
     """Prove independent messages under one key with an ECB proving key.
     The witnesses are filled together in one batch (with a `mesh`, padded
     to a multiple of its size and split across its devices, each filling
-    its chunk). The proofs follow one after another on the key's own
-    prover and device, mesh or not, as in the JAX package: proof i from
-    random.Random(seed i) with the seeds drawn from `rng` first, so a
-    seeded batch gives its proofs."""
+    its chunk). The proofs run on the key's own prover and device, mesh or
+    not, as in the JAX package: proof i from random.Random(seed i) with
+    the seeds drawn from `rng` first, so a seeded batch gives its proofs,
+    each equal to encrypt()'s from its seed. Two proofs are in flight at
+    once, each in a thread of its own and on a CUDA stream of its own,
+    where `pipeline_depth` allows it (4 or more host cores, the JAX
+    package's rule, and room on the card for a second proof); else they
+    follow one after another. Proofs come back in message order; an error
+    in either proof is raised here."""
     _check_mesh(mesh, proving_key)
     require(len(messages) > 0, InvalidInputError, "empty message batch")
     tpl = proving_key.template
@@ -366,9 +444,11 @@ def encrypt_batch(messages: List[bytes], secret_key: bytes,
         zs = evaluate_sharded(
             mesh, lambda d: _evaluator_on(proving_key, d), inputs)
     seeds = [rng.randrange(1 << 62) for _ in messages]
-    return [_prove_z(prover, tpl, z.to(proving_key.device),
-                     random.Random(seed), zk)
-            for z, seed in zip(zs, seeds)]
+    zs = [z.to(proving_key.device) for z in zs]
+    if _batch_depth(proving_key, prover, len(zs)) == 1:
+        return [_prove_z(prover, tpl, z, random.Random(seed), zk)
+                for z, seed in zip(zs, seeds)]
+    return _prove_pipelined(proving_key, prover, tpl, zs, seeds, zk)
 
 
 def compute_ciphertext(message: bytes, secret_key: bytes,

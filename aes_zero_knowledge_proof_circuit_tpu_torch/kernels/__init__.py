@@ -9,8 +9,10 @@ kernel's registers and spills lands beside it (`resource_usage()`).
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.__call__` raises when that is not 0 and counts
-the launch otherwise. It launches on the current CUDA device's stream, so
-the wrappers first hold their tensors to that device (`check_device`).
+the launch otherwise, under a lock, so that counts stay exact while two
+threads launch (`api.encrypt_batch` proves two messages at once). It
+launches on the current CUDA device's current stream (the calling thread's),
+so the wrappers first hold their tensors to that device (`check_device`).
 Nothing is built or loaded on the CPU path.
 """
 
@@ -75,7 +77,8 @@ class Kernel:
         err = fn(*args, stream)
         if err != 0:
             raise KernelError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += self.kernels_per_call
+        with _COUNT_LOCK:
+            self.launches += self.kernels_per_call
 
 
 def check_device(*tensors) -> None:
@@ -105,6 +108,7 @@ class _Library:
 
 _LOCK = threading.Lock()
 _LIB: Optional[_Library] = None
+_COUNT_LOCK = threading.Lock()    # every Kernel's launch count
 
 
 def _sources():
@@ -253,10 +257,13 @@ KERNELS: Dict[str, tuple] = {
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last reset_counts()."""
-    return {name: sum(k.launches for k in ks) for name, ks in KERNELS.items()}
+    with _COUNT_LOCK:
+        return {name: sum(k.launches for k in ks)
+                for name, ks in KERNELS.items()}
 
 
 def reset_counts() -> None:
-    for ks in KERNELS.values():
-        for k in ks:
-            k.launches = 0
+    with _COUNT_LOCK:
+        for ks in KERNELS.values():
+            for k in ks:
+                k.launches = 0

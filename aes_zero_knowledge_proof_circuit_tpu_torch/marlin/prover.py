@@ -41,7 +41,16 @@ from ..ops import kzg, msm_host
 from ..ops import poly as P
 from ..ops.field import fr_ops
 from ..ops.field_params import R_MOD, fr_multiplicative_generator
-from ..ops.msm import msm_point, xyzz_to_affine
+from ..ops import msm_pallas
+from ..ops.msm import (
+    GROUP_BYTES,
+    PAIR_BYTES,
+    msm_point,
+    n_windows,
+    window_bits,
+    window_groups,
+    xyzz_to_affine,
+)
 from ..ops.msm_device import DevicePoints, digit_limbs, msm_device_point
 from ..ops.poly_host import domain, poly_div_linear
 from ..parallel.mesh import Mesh, replicated
@@ -60,6 +69,14 @@ RAND_BYTES = 34   # prover_jax._rand_mont draws one 34-byte value per element
 # bytes one randbytes call draws: it takes fewer than 2^31 bits, and whole
 # 32-bit words, so that the chunks join into the bytes of one call
 RAND_CHUNK = 1 << 27
+
+# device bytes a prove holds a row of H besides its MSM's window group: the
+# proof's polynomials, its 4n-domain and coset temporaries and, on a cold
+# key, the twiddle and coset-power tables it caches (72 Fr rows; a 1 KB
+# prove's, reckoned at n = 2^24: 18 GiB of polynomials, 8.3 of round-3
+# cosets, 6.5 of tables, 2,100 B a row). chip_smoke.py holds the peak of a
+# warm 16-byte, 64-byte and 1 KB prove on an H100 under `proof_bytes`.
+PROOF_ROW_BYTES = 72 * 32
 
 log = logging.getLogger(__name__)
 
@@ -100,6 +117,19 @@ def default_msm_engine() -> str:
     """The engine prover_jax._mxu_ok picks: "pallas" when ZKAES_MSM_MXU is
     "0", "mxu" otherwise."""
     return "pallas" if os.environ.get("ZKAES_MSM_MXU", "1") == "0" else "mxu"
+
+
+def proof_bytes(log_n: int, max_degree: int, msm_engine: str = "mxu") -> int:
+    """Device bytes one prove holds above its key and prover, reckoned:
+    PROOF_ROW_BYTES a row of H, and the first window group of its largest
+    MSM, the opening over all max_degree + 1 SRS points, on `msm_engine`."""
+    points = max_degree + 1
+    if msm_engine == "pallas":
+        windows, pair = msm_pallas.WINDOWS, msm_pallas.PAIR_BYTES
+    else:
+        windows, pair = n_windows(window_bits(points)), PAIR_BYTES
+    w0, w1 = window_groups(windows, points, pair, GROUP_BYTES)[0]
+    return (PROOF_ROW_BYTES << log_n) + (w1 - w0) * points * pair
 
 
 def to_msm_digits(coeffs_mont: torch.Tensor) -> torch.Tensor:
@@ -165,19 +195,27 @@ def coo_arrays(r1cs):
 
 
 class _StageTimer:
-    """Per-stage wall times of one prove (synchronized on CUDA) and, on
-    CUDA, the device memory at each stage's end: (bytes allocated, the
-    allocator's peak so far)."""
+    """Per-stage wall times of one prove and, on CUDA, the device memory at
+    each stage's end: (bytes allocated, the allocator's peak so far). A
+    stage ends once the calling thread's stream has finished it, so that a
+    second prove on another stream of the card (a pipelined
+    `api.encrypt_batch`) runs on; a mesh prover waits for its first card
+    as a whole. The memory is the card's, and so counts every prove in
+    flight on it."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, whole_device: bool = False):
         self.device = device
+        self.whole_device = whole_device
         self.times: dict = {}
         self.memory: dict = {}
         self._t0 = _time.perf_counter()
 
     def mark(self, stage: str) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if self.whole_device:
+                torch.cuda.synchronize(self.device)
+            else:
+                torch.cuda.current_stream(self.device).synchronize()
             self.memory[stage] = (torch.cuda.memory_allocated(self.device),
                                   torch.cuda.max_memory_allocated(self.device))
         now = _time.perf_counter()
@@ -189,7 +227,12 @@ class _StageTimer:
 class TorchProver:
     """Device-resident prover bound to one proving key and one device, or
     to a mesh (its first device holds the prover's state; `device`, if
-    given, must be that device)."""
+    given, must be that device).
+
+    Threads may prove on one prover at once, each on its own CUDA stream
+    (`api.encrypt_batch`): a prove keeps its buffers to itself and the
+    prover keeps none between calls. `last_stage_times` and
+    `last_stage_memory` are those of the prove that finished last."""
 
     def __init__(self, pk: MarlinProvingKey, device=None,
                  msm_engine: Optional[str] = None,
@@ -323,7 +366,7 @@ class TorchProver:
         if len(instance) != pk.r1cs.num_instance or instance[0] != 1:
             raise ValueError("instance must be [1] + the public inputs")
 
-        st = _StageTimer(dev)
+        st = _StageTimer(dev, whole_device=self.mesh is not None)
         t = Transcript()
         pk.vk.absorb_into(t)
         t.absorb_fr_list(b"instance", instance)

@@ -78,6 +78,17 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def table_built(device) -> None:
+    """Wait, on a CUDA `device`, for its current stream to finish what it
+    has queued. Called once a table is built and before it is cached: a
+    cached table is read from every stream (`api.encrypt_batch` proves on
+    two), and a reader on a stream other than the builder's would otherwise
+    race the build."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _int_limbs(v: int, n: int, bits: int) -> List[int]:
     return [(v >> (bits * i)) & ((1 << bits) - 1) for i in range(n)]
 
@@ -134,6 +145,7 @@ class FieldOps:
                 t = t.to(device)
             else:
                 t = self.from_ints([vals[name]], device, mont=False)
+            table_built(device)
             self._consts[key] = t
         return t
 
@@ -313,6 +325,7 @@ class FieldOps:
             t = from_u32(torch.tensor(_int_limbs(e, -(-e.bit_length() // 32),
                                                  32), dtype=torch.int64)
                          ).to(device)
+            table_built(device)
             self._consts[key] = t
         return t
 

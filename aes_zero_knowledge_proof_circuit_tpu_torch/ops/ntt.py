@@ -8,9 +8,10 @@ spaced 2^t0 apart (`pass_widths` splits log2 n evenly: two passes from 2^11
 to 2^20). The first pass reads its input in bit-reversed order; the last
 multiplies by 1/n in the inverse transform. Every stage's twiddles are
 strided reads of ONE [n/2, 8] table of omega powers, built once per size on
-the tensor's device. `ntt_rows` / `intt_rows` transform a batch [B, n, 8]
-of independent rows in the same launches (the four-step NTT's passes,
-parallel/sharded_ntt.py).
+the tensor's device and finished before it is cached, so that every stream
+may read it (`field.table_built`). `ntt_rows` / `intt_rows` transform a
+batch [B, n, 8] of independent rows in the same launches (the four-step
+NTT's passes, parallel/sharded_ntt.py).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .field_params import (
 )
 
 from .. import kernels
-from .field import aligned, fr_ops
+from .field import aligned, fr_ops, table_built
 
 F = fr_ops()
 PASS_LOG = 10          # stages a pass: tiles of 2^10 elements, 32 KB
@@ -47,7 +48,9 @@ def _bitrev(log_n: int, device: str) -> torch.Tensor:
     rev = torch.zeros_like(idx)
     for b in range(log_n):
         rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev.to(device)
+    rev = rev.to(device)
+    table_built(device)
+    return rev
 
 
 def plain_pass(src: torch.Tensor, table: torch.Tensor, log_n: int, t0: int,
@@ -107,6 +110,7 @@ class NTTEngine:
         self.inv_table = powers(scalar(pow(omega, -1, R_MOD), self.device),
                                 half)
         self.n_inv = scalar(pow(self.n, -1, R_MOD), self.device)
+        table_built(self.device)
 
     def _check(self, x: torch.Tensor, rows: bool = False) -> None:
         dims = 3 if rows else 2

@@ -20,7 +20,7 @@ import torch
 
 from .field_params import R_MOD
 
-from .field import MASK16, fr_ops, from_halves, halves
+from .field import MASK16, fr_ops, from_halves, halves, table_built
 from .ntt import ntt_engine
 
 F = fr_ops()
@@ -80,7 +80,9 @@ def intt(log_n: int, evals: torch.Tensor) -> torch.Tensor:
 def _coset_powers(log_n: int, g: int, inverse: bool, device: str
                   ) -> torch.Tensor:
     gg = pow(g, -1, R_MOD) if inverse else g % R_MOD
-    return powers(scalar(gg, device), 1 << log_n)
+    pw = powers(scalar(gg, device), 1 << log_n)
+    table_built(device)
+    return pw
 
 
 def ntt_coset(log_n: int, coeffs: torch.Tensor, g: int) -> torch.Tensor:

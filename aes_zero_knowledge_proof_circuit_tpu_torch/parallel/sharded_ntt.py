@@ -23,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from ..ops.field import fr_ops
+from ..ops.field import fr_ops, table_built
 from ..ops.field_params import R_MOD, root_of_unity
 from ..ops.ntt import ntt_engine
 from ..ops.poly import powers, scalar
@@ -65,6 +65,7 @@ def _twiddles(mesh: Mesh, log_n1: int, log_n2: int, inverse: bool):
             e &= (1 << log_n) - 1
             tw = F.mul(lo[e & ((1 << h) - 1)], hi[e >> h])
             out.append(tw.view(c1 - c0, n2, F.L))
+            table_built(d)
     return tuple(out)
 
 

@@ -62,10 +62,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
 8. cbc: synthesize_keys(16, mode="cbc"), a cold and a warm zk proof with
    its iv, verification, rejection of a flipped ciphertext bit and of a
    flipped iv bit, a serialization round trip;
-9. batch: encrypt_batch of two messages on the main path's key under a
-   seeded rng; each proof verifies against its own ciphertext and not the
-   other's, and proof i equals encrypt(m_i) from Random(seed i) byte for
-   byte, the seeds drawn as the JAX package draws them;
+9. batch: encrypt_batch of four messages on the main path's key under a
+   seeded rng, two proofs in flight on two CUDA streams: the depth the
+   memory rule picks (two) and a warm prove's device bytes against the
+   reckoning the rule counts on; the batch timed, then the same four
+   proofs made in turn by encrypt(m_i) from Random(seed i) (the seeds
+   drawn as the JAX package draws them), each equal byte for byte, their
+   times and sum, then the batch again; the batch's launches exactly four
+   times one prove's, and its peak device memory (two proofs in flight);
+   each proof verifies against its own ciphertext and not the next
+   message's. The same again on the 64-byte key after 64B (batch64);
 10. 32B: synthesize_keys(32, mode="cbc") (n = 2^19, the index committed on
    K4 over up to 2^21 points), a cold and a warm zk proof with stage times,
    verification, rejection of a flipped bit in the second ciphertext block;
@@ -99,7 +105,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    proof on the K3 engine and a warm one on the K4 engine with stage times
    and launches, verification on the host, rejection of a flipped bit in
    the 64th ciphertext block, a serialization round trip, the card's
-   memory before and over the proves; then K3 and K4 at 2^25 + 1 SRS
+   memory before and over the proves, the warm prove's bytes against the
+   reckoning and encrypt_batch's depth for this key (one: a second 1 KB
+   proof does not fit on an 80 GB card); then K3 and K4 at 2^25 + 1 SRS
    points equal to each other, and K3 at the key's 2^26 + 1 points equal
    to the sum of K3 over its two halves;
 14. plonk: the AES-128 Plonk circuit (272,544 gates, n = 2^19), the host
@@ -110,7 +118,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    gates whose proof on the card equals the host prover's field for field.
 
 Each path (ntt_mul, srs, main; and each index and prove of cbc, batch, 32B,
-64B, mesh, 1KB and plonk) runs with the launch counts set to 0 just before
+64B, batch64, mesh, 1KB and plonk) runs with the launch counts set to 0 just before
 it and read just after; every kernel must have launched in the path that
 uses it (K1, K2 and K3 in each prove, K1, K2 and K4 in each index, K1 and
 K6 in the SRS generation), and the JSON `launches` entry is the main
@@ -153,6 +161,7 @@ import torch  # noqa: E402
 from aes_zero_knowledge_proof_circuit_tpu_torch import api, kernels
 from aes_zero_knowledge_proof_circuit_tpu_torch import entry as E
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import (
+    proof_bytes,
     to_msm_digits,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import edge_inputs as EI
@@ -1310,38 +1319,100 @@ def phase_cbc(dev) -> None:
         f"{round_trip(vk, proof, ct, IV)} bytes")
 
 
-def phase_batch(pk, vk) -> None:
-    """encrypt_batch of two messages on the 16-byte ECB key: each proof
-    verifies against its own ciphertext and not the other's, and proof i
-    equals encrypt(m_i) from Random(seed i), the seeds drawn first from the
-    batch's rng as the JAX package draws them."""
-    messages = [MESSAGE, bytes(range(100, 116))]
-    proofs, counts, secs = counted(
-        lambda: api.encrypt_batch(messages, KEY, pk, rng=random.Random(21)),
-        PROVE_PATH, "the batch")
-    say(f"[batch] encrypt_batch of {len(messages)} 16-byte messages: "
-        f"{secs:.3f}s ({secs / len(messages):.3f}s a proof); launches "
-        f"{counts} [{CARD}]")
+BATCH = 4          # messages of each [batch] line
+
+
+def transient_check(pk, tag: str) -> str:
+    """One warm encrypt on `pk` with the peak reset before it: the bytes
+    it held above what was allocated before, which must not exceed the
+    reckoned `proof_bytes` that the batch's memory rule counts on."""
+    dev = pk.device
+    prover = pk._prover
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    api.encrypt(bytes(pk.template.msg_len), KEY, pk, rng=random.Random(5))
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.max_memory_allocated(dev) - before
+    reckoned = proof_bytes(prover.log_n, prover.d_max, prover.msm_engine)
+    if held > reckoned:
+        raise AssertionError(f"a warm {tag} prove held {gib(held)} above "
+                             f"its key, over the {gib(reckoned)} reckoned")
+    return (f"a warm prove held {gib(held)} above its key, reckoned "
+            f"{gib(reckoned)}")
+
+
+def phase_batch(pk, vk, tag: str) -> None:
+    """encrypt_batch of BATCH messages on `pk` under a seeded rng: the
+    depth the memory rule picks here (two on an 80 GB card) and a warm
+    prove's bytes against the reckoning; the batch timed twice around the
+    same proofs made in turn by encrypt(m_i) from Random(seed i), the
+    seeds drawn first from the batch's rng as the JAX package draws them,
+    with its launches (exactly the sum of the proofs in turn, BATCH times
+    one's) and its peak device memory; each batch proof byte-equal to its
+    proof in turn, verified against its own ciphertext and rejected
+    against the next message's."""
+    dev = pk.device
+    msg_len = pk.template.msg_len
+    messages = [bytes((7 * i + j) % 256 for j in range(msg_len))
+                for i in range(BATCH)]
+    depth = api._batch_depth(pk, pk._prover, BATCH)
+    say(f"[batch] {tag}: the memory rule keeps {depth} proofs in flight "
+        f"({os.cpu_count()} host cores); {transient_check(pk, tag)} "
+        f"[{CARD}]")
+    if depth != 2:
+        raise AssertionError(f"the {tag} batch would prove in turn")
+
+    def batch(label: str):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        proofs, counts, secs = counted(
+            lambda: api.encrypt_batch(messages, KEY, pk,
+                                      rng=random.Random(21)),
+            PROVE_PATH, f"the {tag} batch")
+        peak = torch.cuda.max_memory_allocated(dev)
+        say(f"[batch] {tag} encrypt_batch of {BATCH} messages, {label}: "
+            f"{secs:.3f}s ({secs / BATCH:.3f}s a proof); launches {counts};"
+            f" peak device memory {gib(peak)}, {gib(peak - before)} above "
+            f"the key [{CARD}]")
+        return proofs, counts, secs
+
+    proofs, counts, first_s = batch("first")
+    draw = random.Random(21)
+    seeds = [draw.randrange(1 << 62) for _ in messages]
+    single_counts, times = [], []
+    for i, (m, seed) in enumerate(zip(messages, seeds)):
+        single, one_counts, secs = counted(
+            lambda: api.encrypt(m, KEY, pk, rng=random.Random(seed)),
+            PROVE_PATH, f"the {tag} proof {i} in turn")
+        if api.serialize_proof(single) != api.serialize_proof(proofs[i]):
+            raise AssertionError(f"{tag} batch proof {i} differs from "
+                                 f"encrypt() with its seed")
+        single_counts.append(one_counts)
+        times.append(secs)
+    if any(c != single_counts[0] for c in single_counts) or counts != {
+            k: BATCH * v for k, v in single_counts[0].items()}:
+        raise AssertionError(f"the {tag} batch launched {counts}, not "
+                             f"{BATCH} times a prove's {single_counts}")
+    again, counts2, second_s = batch("again")
+    if counts2 != counts or [api.serialize_proof(p) for p in again] != [
+            api.serialize_proof(p) for p in proofs]:
+        raise AssertionError(f"the second {tag} batch differs from the "
+                             f"first")
+    say(f"[batch] {tag}: the {BATCH} proofs in turn through encrypt() from "
+        f"their seeds: " + ", ".join(f"{t:.3f}" for t in times)
+        + f"s, sum {sum(times):.3f}s, against the batch's {first_s:.3f}s "
+        f"and {second_s:.3f}s; each batch proof equal byte for byte, "
+        f"launches {BATCH} x {single_counts[0]} [{CARD}]")
     cts = [api.compute_ciphertext(m, KEY) for m in messages]
     for i, proof in enumerate(proofs):
         if not api.verify_encryption(vk, proof, cts[i]):
-            raise AssertionError(f"batch proof {i} does not verify")
-        if api.verify_encryption(vk, proof, cts[1 - i]):
-            raise AssertionError(f"batch proof {i} verifies against the "
-                                 f"other ciphertext")
-    draw = random.Random(21)
-    seeds = [draw.randrange(1 << 62) for _ in messages]
-    for i, (m, seed) in enumerate(zip(messages, seeds)):
-        t0 = time.perf_counter()
-        single = api.encrypt(m, KEY, pk, rng=random.Random(seed))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        if api.serialize_proof(single) != api.serialize_proof(proofs[i]):
-            raise AssertionError(f"batch proof {i} differs from encrypt() "
-                                 f"with its seed")
-        say(f"[batch] proof {i}: encrypt() from its seed {secs:.3f}s, equal "
-            f"byte for byte [{CARD}]")
-    say("[batch] both proofs verify; the crossed pair is rejected")
+            raise AssertionError(f"{tag} batch proof {i} does not verify")
+        if api.verify_encryption(vk, proof, cts[(i + 1) % BATCH]):
+            raise AssertionError(f"{tag} batch proof {i} verifies against "
+                                 f"another message's ciphertext")
+    say(f"[batch] {tag}: every proof verifies; each is rejected against "
+        f"the next message's ciphertext")
 
 
 def phase_32b(dev) -> None:
@@ -1742,8 +1813,12 @@ def phase_1kb(dev) -> None:
                              f"{shapes}, not (24, 25, 2^26)")
     torch.cuda.reset_peak_memory_stats(dev)
     resident = torch.cuda.memory_allocated(dev)
-    proofs = {}
+    proofs, peaks = {}, []
     for label, seed in (("cold", 24), ("warm", 25)):
+        # the warm prove's own peak, from what was allocated before it
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         proofs[label], counts, secs = counted(
             lambda: api.encrypt(message, KEY, pk, rng=random.Random(seed)),
             PROVE_PATH, f"the {label} 1 KB prove")
@@ -1753,12 +1828,24 @@ def phase_1kb(dev) -> None:
             f"{stage_text(pk)}; launches {counts} [{CARD}]")
         say(f"[1KB] {label} prove's device memory at each stage's end "
             f"(allocated / peak so far): {stage_memory_text(pk)}")
-    peak = torch.cuda.max_memory_allocated(dev)
+    held = torch.cuda.max_memory_allocated(dev) - before
+    peak = max(peaks + [torch.cuda.max_memory_allocated(dev)])
     say(f"[1KB] device memory: {gib(resident)} allocated before the proves "
         f"(the key, its prover and every earlier key of the run), peak "
         f"{gib(peak)} in the K3-engine proves ({gib(peak - resident)} "
         f"above), {gib(torch.cuda.max_memory_reserved(dev))} reserved at "
         f"most [{CARD}]")
+    # no local name for the prover: the K4-engine prove below needs its
+    # memory once `pk._prover` is dropped
+    reckoned = proof_bytes(pk._prover.log_n, pk._prover.d_max,
+                           pk._prover.msm_engine)
+    depth = api._batch_depth(pk, pk._prover, 2)
+    say(f"[1KB] the warm prove held {gib(held)} above its key, reckoned "
+        f"{gib(reckoned)}; encrypt_batch's memory rule keeps {depth} proof "
+        f"in flight [{CARD}]")
+    if held > reckoned or depth != 1:
+        raise AssertionError(f"a 1 KB prove held {gib(held)} against "
+                             f"{gib(reckoned)} reckoned; depth {depth}")
     ct = api.compute_ciphertext(message, KEY)
     t0 = time.perf_counter()
     for label, proof in proofs.items():
@@ -1933,9 +2020,10 @@ def run(smi: str, job: subprocess.Popen) -> None:
     pk, vk = timed_phase("main", phase_main_path, results, dev)
     timed_phase("entry", phase_entry, dev)
     timed_phase("cbc", phase_cbc, dev)
-    timed_phase("batch", phase_batch, pk, vk)
+    timed_phase("batch", phase_batch, pk, vk, "16B")
     timed_phase("32B", phase_32b, dev)
     pk64, vk64 = timed_phase("64B", phase_64b, dev)
+    timed_phase("batch64", phase_batch, pk64, vk64, "64B")
     timed_phase("mesh", phase_mesh, results, dev, pk, vk, pk64, vk64)
     del pk64, vk64
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 """Profile one warm prove of the PyTorch port on a CUDA card.
 
     python3 scripts/profile_torch_prove.py [--bytes 16] [--mode ecb]
-        [--warm 3] [--mesh N] [--out FILE]
+        [--warm 3] [--mesh N] [--batch N] [--out FILE]
 
 Builds the proving key on the card (`synthesize_keys(BYTES, mode=MODE,
 device="cuda")`, cached on disk after the first run; a CBC key proves with
@@ -11,7 +11,11 @@ one prove under `torch.profiler` with CPU and CUDA activities. With
 (cuda:(i mod their count), `encrypt(mesh=)`): first one prove on the key's
 card alone, kept as the reference, then its prover is dropped and the mesh
 proves from the same seed, which must equal it byte for byte, verify, and
-fail against a flipped bit of the last ciphertext block. It prints:
+fail against a flipped bit of the last ciphertext block. With `--batch N`
+(ECB, no mesh) the profiled run is one `encrypt_batch` of N messages (two
+proofs in flight where its memory rule allows, one CUDA stream each),
+after one unprofiled batch, and a thread samples the proving threads'
+Python stacks every millisecond meanwhile. It prints:
 
 - the card's name and power limit (nvidia-smi), the key's shapes and the
   warm prove seconds;
@@ -27,7 +31,12 @@ fail against a flipped bit of the last ciphertext block. It prints:
 - one `[group]` line per kernel family (K1, K2, each MSM kernel, torch's
   scan and sort kernels, the rest): device ms, launches and share, each
   the sum of the `[kernel]` lines whose names it matches;
-- one `[kernel]` line per device kernel or copy name, sorted by device time.
+- one `[kernel]` line per device kernel or copy name, sorted by device time;
+- with `--batch`, the batch's wall seconds, the depth it ran at, and one
+  `[host]` line per sampled place (the innermost frame of the port, or
+  the library call it is in), with its share of the samples: where the
+  proving threads spend the host's time, and so which host section keeps
+  the other proof's kernels waiting.
 
 `--out` also writes the `[kernel]` lines to FILE.
 """
@@ -39,8 +48,9 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 
 import torch
@@ -105,6 +115,56 @@ def prove(pk, message: bytes, iv, seed: int, mesh=None):
     return proof, time.perf_counter() - t0
 
 
+PKG_DIR = "aes_zero_knowledge_proof_circuit_tpu_torch"
+
+
+def place(frame) -> str:
+    """Where a sampled stack is: its innermost frame of the port (function,
+    file and line), and the call it is in beyond the port, if any."""
+    inner = frame
+    while frame is not None and PKG_DIR not in frame.f_code.co_filename:
+        frame = frame.f_back
+    if frame is None:
+        return f"{inner.f_code.co_name} (outside the port)"
+    where = (f"{frame.f_code.co_name} "
+             f"{frame.f_code.co_filename.split(PKG_DIR + '/')[-1]}:"
+             f"{frame.f_lineno}")
+    if inner is not frame:
+        where += f" in {inner.f_code.co_name}"
+    return where
+
+
+class StackSampler:
+    """Samples every other thread's stack each `period` seconds while
+    running: Counter of `place` over the threads busy in the port."""
+
+    def __init__(self, period: float = 1e-3):
+        self.period = period
+        self.places: Counter = Counter()
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        me, main = threading.get_ident(), threading.main_thread().ident
+        while not self._stop.wait(self.period):
+            for ident, frame in sys._current_frames().items():
+                if ident in (me, main):
+                    continue
+                text = place(frame)
+                if "(outside the port)" not in text:
+                    self.places[text] += 1
+                    self.samples += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
 def mask_draw_text(log_n: int, dev, r1_commits: float) -> str:
     """The prover's zk mask draw (2n + 1 elements) timed alone on `dev`,
     and the seeded bytes it draws, beside the stage that holds it."""
@@ -137,8 +197,14 @@ def main() -> int:
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--mesh", type=int, default=0,
                     help="prove on a mesh of this many shards (0: no mesh)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile one encrypt_batch of this many messages "
+                         "(0: one encrypt)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
+    if args.batch and (args.mesh or args.mode != "ecb"):
+        raise SystemExit("profile_torch_prove: --batch takes an ECB key "
+                         "and no mesh")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_prove: no CUDA device")
     smi = subprocess.run(
@@ -183,15 +249,37 @@ def main() -> int:
           + (f"; median {statistics.median(warm):.3f}" if warm else ""))
 
     cards = range(torch.cuda.device_count()) if mesh else [dev.index]
+    sampler = None
+    if args.batch:
+        messages = [bytes((7 * i + j) % 256 for j in range(args.bytes))
+                    for i in range(args.batch)]
+        t0 = time.perf_counter()
+        api.encrypt_batch(messages, KEY, pk, rng=random.Random(8))
+        torch.cuda.synchronize(dev)
+        print(f"unprofiled batch of {args.batch}: "
+              f"{time.perf_counter() - t0:.3f}s; depth "
+              f"{api._batch_depth(pk, pk._prover, args.batch)}", flush=True)
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        proof, wall = prove(pk, message, iv, 100, mesh)
+        if args.batch:
+            with StackSampler() as sampler:
+                t0 = time.perf_counter()
+                proofs = api.encrypt_batch(messages, KEY, pk,
+                                           rng=random.Random(9))
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+            proof = proofs[0]
+            ct = api.compute_ciphertext(messages[0], KEY)
+        else:
+            proof, wall = prove(pk, message, iv, 100, mesh)
     if not api.verify_encryption(vk, proof, ct, iv=iv):
         raise AssertionError("the profiled proof does not verify")
     prover = pk._mesh_provers[mesh] if mesh else pk._prover
-    print(f"profiled prove: {wall:.3f}s wall, verifies; stages "
+    what = f"batch of {args.batch}" if args.batch else "prove"
+    print(f"profiled {what}: {wall:.3f}s wall, verifies; stages "
+          + ("(of the proof that finished last) " if args.batch else "")
           + stage_text(prover.last_stage_times))
 
     per_name = defaultdict(lambda: [0.0, 0])
@@ -219,6 +307,10 @@ def main() -> int:
         print("busy by card: " + ", ".join(
             f"cuda:{d} {busy_us(iv_) / 1e6:.4f}s"
             for d, iv_ in sorted(per_card.items())))
+    if sampler is not None:
+        for where, hits in sampler.places.most_common(25):
+            print(f"[host] {100 * hits / sampler.samples:.1f} % of "
+                  f"{sampler.samples} samples: {where}")
     # after the peaks are read: the draw allocates on the card
     print(mask_draw_text(pk.marlin_pk.log_n, dev,
                          prover.last_stage_times["r1_commits"]), flush=True)

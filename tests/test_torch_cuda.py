@@ -372,3 +372,126 @@ def test_grouped_msm_matches_one_group(cuda, engine, monkeypatch):
     for group in (1, 3, 7):
         monkeypatch.setattr(M, "GROUP_BYTES", group * n * pair)
         assert M.xyzz_to_affine(run())[0] == want
+
+
+def _clear_table_caches():
+    """Drop every cached device table of the prove path, as on a cold key."""
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import ntt, poly
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+
+    ntt._engine.cache_clear()
+    ntt._bitrev.cache_clear()
+    poly._coset_powers.cache_clear()
+    fr_ops()._consts.clear()
+
+
+def test_cached_tables_are_finished_for_a_second_stream(cuda):
+    """Cold caches: one thread builds the NTT tables, the bit reversal, the
+    coset powers and F.const rows on a stream held up by a device sleep;
+    the other then reads them from the caches on its own stream. Both
+    workers' first reads equal the tables built alone."""
+    import threading
+
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops import ntt, poly
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field import fr_ops
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import (
+        fr_multiplicative_generator,
+    )
+
+    f, log_n, g = fr_ops(), 16, fr_multiplicative_generator()
+
+    def tables():
+        eng = ntt.ntt_engine(log_n, cuda)
+        return [eng.fwd_table, eng.inv_table, eng.n_inv,
+                ntt._bitrev(log_n, str(cuda)),
+                poly._coset_powers(log_n, g, False, str(cuda)),
+                poly._coset_powers(log_n, g, True, str(cuda)),
+                f.const("one", cuda), f.const("r2", cuda),
+                f.const("r3", cuda), f.const("one_raw", cuda)]
+
+    _clear_table_caches()
+    kept = tables()                # held, so no later build reuses them
+    alone = [t.clone() for t in kept]
+    torch.cuda.synchronize(cuda)
+    _clear_table_caches()
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    built = threading.Event()
+    reads = [None, None]
+
+    def worker(i):
+        with torch.cuda.device(cuda), torch.cuda.stream(streams[i]):
+            if i == 0:
+                torch.cuda._sleep(200_000_000)   # about 0.1 s of the card
+                first = tables()
+                built.set()
+            else:
+                assert built.wait(60)
+                first = tables()
+            reads[i] = [t.clone() for t in first]
+        streams[i].synchronize()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    for got in reads:
+        assert got is not None
+        for a, b in zip(got, alone):
+            assert torch.equal(a, b)
+    del kept
+
+
+def test_pipelined_proves_on_a_cold_card_equal_proofs_in_turn(cuda):
+    """The batch pipeline (`api._prove_pipelined`: two threads, one stream
+    each, on one prover) proves four witnesses of a toy circuit on a cold
+    key (its first proves build the cached tables); every proof equals,
+    byte for byte, the one encrypt's path makes in turn from its seed, and
+    a warm batch launches four times one prove's kernels."""
+    import random
+    import types
+
+    from aes_zero_knowledge_proof_circuit_tpu_torch import api, kernels
+    from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import indexer
+    from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import (
+        TorchProver,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import (
+        R_MOD,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.dryrun import (
+        _toy_circuit,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.utils.serialize import (
+        serialize_proof,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+        generate_srs_native,
+    )
+
+    cs = _toy_circuit()
+    na, nb, nc = cs.nnz()
+    need = indexer.required_degree(cs.num_constraints, cs.num_variables,
+                                   max(na, nb, nc))
+    pk = indexer.index(cs, generate_srs_native(need, random.Random(6)), cuda)
+    _clear_table_caches()
+    prover = TorchProver(pk, cuda)
+    key = api.AESProvingKey(marlin_pk=pk, template=None, device=cuda)
+    tpl = types.SimpleNamespace(r1cs=cs)
+    zs = [torch.tensor([1, pow(x, 9, R_MOD), x, x ** 2, x ** 4, x ** 8],
+                       dtype=torch.int32, device=cuda) for x in (2, 3, 5, 7)]
+    seeds = [50, 51, 52, 53]
+    cold = api._prove_pipelined(key, prover, tpl, zs, seeds, zk=True)
+    alone = [api._prove_z(prover, tpl, z, random.Random(s), True)
+             for z, s in zip(zs, seeds)]
+    kernels.reset_counts()
+    warm = api._prove_pipelined(key, prover, tpl, zs, seeds, zk=True)
+    counts = kernels.launch_counts()
+    kernels.reset_counts()
+    api._prove_z(prover, tpl, zs[0], random.Random(seeds[0]), True)
+    one = kernels.launch_counts()
+    assert counts == {k: 4 * v for k, v in one.items()}
+    for a, b, c in zip(cold, warm, alone):
+        assert serialize_proof(a) == serialize_proof(c)
+        assert serialize_proof(b) == serialize_proof(c)

@@ -6,7 +6,7 @@ function.
   both `import jax` and `import aes_zero_knowledge_proof_circuit_tpu` fail;
 * an AST scan of every source file of the port, chip_smoke.py and the
   card scripts (profile_torch_prove.py, mesh_smoke.py,
-  time_sharded_msm.py, reckon_1kb.py, time_field_ntt.py)
+  time_sharded_msm.py, reckon_1kb.py, time_field_ntt.py, time_batch.py)
   finds no import that names either;
 * the toy circuit is built, indexed, proved (zk=False, CPU) and verified by
   the port alone in such an interpreter;
@@ -51,7 +51,8 @@ def scanned_files():
                     ROOT / "scripts" / "mesh_smoke.py",
                     ROOT / "scripts" / "time_sharded_msm.py",
                     ROOT / "scripts" / "reckon_1kb.py",
-                    ROOT / "scripts" / "time_field_ntt.py"]
+                    ROOT / "scripts" / "time_field_ntt.py",
+                    ROOT / "scripts" / "time_batch.py"]
 
 
 def test_module_list_covers_the_slice():
