@@ -54,6 +54,7 @@ from .ops.aes_host import encrypt_cbc, encrypt_ecb
 from .ops.field_params import R_MOD
 from .ops.witness import WitnessEvaluator, evaluate_sharded
 from .parallel.mesh import Mesh, make_mesh
+from .utils import spans
 from .utils import srs as _srs
 from .utils.config import CONFIG
 from .utils.device import resolve_device
@@ -328,7 +329,8 @@ def _prove_z(prover: TorchProver, tpl: Template, z: torch.Tensor, rng,
     """Prove one filled witness z: the instance is [1] + z[1:num_instance]
     (the iv bits, for CBC, then the ciphertext bits)."""
     num_instance = tpl.r1cs.num_instance
-    instance = [1] + z[1:num_instance].tolist()
+    with spans.wait("instance_bits", readback=4 * num_instance):
+        instance = [1] + z[1:num_instance].tolist()
     return prover.prove(instance, z[num_instance:], rng=rng, zk=zk)
 
 
@@ -339,14 +341,15 @@ def encrypt(message: bytes, secret_key: bytes, proving_key: AESProvingKey,
     proving keys take the public 16-byte iv. With a `mesh`, the proof runs
     on the mesh's prover (kept on the key, one a mesh) and equals the
     single-device proof from the same rng."""
-    _check_mesh(mesh, proving_key)
-    rng = rng or generate_rand()
-    tpl = proving_key.template
-    _check_inputs(tpl, [message], secret_key, iv)
-    evaluator, prover = _proving_state(proving_key, mesh)
-    z = evaluator.evaluate_batch(_witness_bits(tpl, [message], secret_key,
-                                               iv))[0]
-    return _prove_z(prover, tpl, z, rng, zk)
+    with spans.span("api.encrypt", messages=1):
+        _check_mesh(mesh, proving_key)
+        rng = rng or generate_rand()
+        tpl = proving_key.template
+        _check_inputs(tpl, [message], secret_key, iv)
+        evaluator, prover = _proving_state(proving_key, mesh)
+        z = evaluator.evaluate_batch(_witness_bits(tpl, [message],
+                                                   secret_key, iv))[0]
+        return _prove_z(prover, tpl, z, rng, zk)
 
 
 def pipeline_depth(cores: int, proof_bytes: int, free_bytes: int) -> int:
@@ -395,19 +398,24 @@ def _prove_pipelined(proving_key: AESProvingKey, prover: TorchProver,
         free = queue.SimpleQueue()
         for s in proving_key._streams:
             free.put(s)
+    root = spans.current()
 
     def one(i: int) -> MarlinProof:
         if dev.type != "cuda":
-            return _prove_z(prover, tpl, zs[i], random.Random(seeds[i]), zk)
+            with spans.attach(root):
+                return _prove_z(prover, tpl, zs[i], random.Random(seeds[i]),
+                                zk)
         s = free.get()
         try:
-            with torch.cuda.device(dev), torch.cuda.stream(s):
+            with spans.attach(root), torch.cuda.device(dev), \
+                    torch.cuda.stream(s):
                 s.wait_event(filled)
                 zs[i].record_stream(s)
                 return _prove_z(prover, tpl, zs[i], random.Random(seeds[i]),
                                 zk)
         finally:
-            s.synchronize()
+            with spans.attach(root), spans.wait("proof_stream"):
+                s.synchronize()
             free.put(s)
 
     with ThreadPoolExecutor(max_workers=2) as ex:
@@ -429,6 +437,12 @@ def encrypt_batch(messages: List[bytes], secret_key: bytes,
     package's rule, and room on the card for a second proof); else they
     follow one after another. Proofs come back in message order; an error
     in either proof is raised here."""
+    with spans.span("api.encrypt_batch", messages=len(messages)):
+        return _encrypt_batch(messages, secret_key, proving_key, rng, zk,
+                              mesh)
+
+
+def _encrypt_batch(messages, secret_key, proving_key, rng, zk, mesh):
     _check_mesh(mesh, proving_key)
     require(len(messages) > 0, InvalidInputError, "empty message batch")
     tpl = proving_key.template

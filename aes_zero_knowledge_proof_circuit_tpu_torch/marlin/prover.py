@@ -27,10 +27,8 @@ proof equals the single-device proof from the same rng byte for byte.
 
 from __future__ import annotations
 
-import logging
 import os
 import random as _random
-import time as _time
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, List, Optional, Sequence
 
@@ -56,6 +54,7 @@ from ..ops.poly_host import domain, poly_div_linear
 from ..parallel.mesh import Mesh, replicated
 from ..parallel.sharded_msm import msm_sharded
 from ..parallel.sharded_ntt import four_step_split, ntt_sharded
+from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.srs import device_powers
 from ..utils.transcript import Transcript
@@ -77,9 +76,6 @@ RAND_CHUNK = 1 << 27
 # cosets, 6.5 of tables, 2,100 B a row). chip_smoke.py holds the peak of a
 # warm 16-byte, 64-byte and 1 KB prove on an H100 under `proof_bytes`.
 PROOF_ROW_BYTES = 72 * 32
-
-log = logging.getLogger(__name__)
-
 
 MSM_ENGINES = ("mxu", "pallas")
 
@@ -146,8 +142,9 @@ def _sparse_ints(positions: Sequence[int], values: Sequence[int],
                  length: int, device) -> torch.Tensor:
     """Host sparse int poly -> dense device dpoly."""
     out = P.zeros(length, device)
-    out[torch.as_tensor(list(positions), device=device)] = F.from_ints(
-        values, device)
+    with spans.wait("sparse_positions", upload=8 * len(positions)):
+        where = torch.as_tensor(list(positions), device=device)
+    out[where] = F.from_ints(values, device)
     return out
 
 
@@ -156,18 +153,21 @@ def _rand_mont(rng: _random.Random, n: int, device) -> torch.Tensor:
     mod r (the draw of prover_jax._rand_mont), as V_lo R + V_hi R^2. The
     bytes come in chunks of RAND_CHUNK (one call cannot draw the 2^25 + 1
     elements of a 1 KB proof's mask), equal to one call's bytes."""
-    total = n * RAND_BYTES
-    raw = np.frombuffer(b"".join(
-        rng.randbytes(min(RAND_CHUNK, total - i))
-        for i in range(0, total, RAND_CHUNK)), np.uint8)
-    raw = raw.reshape(n, RAND_BYTES)
-    lo = np.ascontiguousarray(raw[:, :32]).view("<u4").view(np.int32)
-    hi = np.zeros((n, L), np.int32)
-    hi[:, 0] = raw[:, 32].astype(np.int32) | (raw[:, 33].astype(np.int32) << 8)
-    lo_t = torch.from_numpy(lo.copy()).to(device)
-    hi_t = torch.from_numpy(hi).to(device)
-    return F.add(F.mul(lo_t, F.const("r2", device)),
-                 F.mul(hi_t, F.const("r3", device)))
+    with spans.span("host.mask_draw", elements=n):
+        total = n * RAND_BYTES
+        raw = np.frombuffer(b"".join(
+            rng.randbytes(min(RAND_CHUNK, total - i))
+            for i in range(0, total, RAND_CHUNK)), np.uint8)
+        raw = raw.reshape(n, RAND_BYTES)
+        lo = np.ascontiguousarray(raw[:, :32]).view("<u4").view(np.int32)
+        hi = np.zeros((n, L), np.int32)
+        hi[:, 0] = (raw[:, 32].astype(np.int32)
+                    | (raw[:, 33].astype(np.int32) << 8))
+        with spans.wait("mask_limbs", upload=lo.nbytes + hi.nbytes):
+            lo_t = torch.from_numpy(lo.copy()).to(device)
+            hi_t = torch.from_numpy(hi).to(device)
+        return F.add(F.mul(lo_t, F.const("r2", device)),
+                     F.mul(hi_t, F.const("r3", device)))
 
 
 def _signed(vals) -> np.ndarray:
@@ -194,36 +194,6 @@ def coo_arrays(r1cs):
     return out
 
 
-class _StageTimer:
-    """Per-stage wall times of one prove and, on CUDA, the device memory at
-    each stage's end: (bytes allocated, the allocator's peak so far). A
-    stage ends once the calling thread's stream has finished it, so that a
-    second prove on another stream of the card (a pipelined
-    `api.encrypt_batch`) runs on; a mesh prover waits for its first card
-    as a whole. The memory is the card's, and so counts every prove in
-    flight on it."""
-
-    def __init__(self, device: torch.device, whole_device: bool = False):
-        self.device = device
-        self.whole_device = whole_device
-        self.times: dict = {}
-        self.memory: dict = {}
-        self._t0 = _time.perf_counter()
-
-    def mark(self, stage: str) -> None:
-        if self.device.type == "cuda":
-            if self.whole_device:
-                torch.cuda.synchronize(self.device)
-            else:
-                torch.cuda.current_stream(self.device).synchronize()
-            self.memory[stage] = (torch.cuda.memory_allocated(self.device),
-                                  torch.cuda.max_memory_allocated(self.device))
-        now = _time.perf_counter()
-        self.times[stage] = now - self._t0
-        log.info("prover stage %-18s %.3fs", stage, now - self._t0)
-        self._t0 = now
-
-
 class TorchProver:
     """Device-resident prover bound to one proving key and one device, or
     to a mesh (its first device holds the prover's state; `device`, if
@@ -231,8 +201,8 @@ class TorchProver:
 
     Threads may prove on one prover at once, each on its own CUDA stream
     (`api.encrypt_batch`): a prove keeps its buffers to itself and the
-    prover keeps none between calls. `last_stage_times` and
-    `last_stage_memory` are those of the prove that finished last."""
+    prover keeps none between calls. With `utils.spans` on, a prove is a
+    `prove` span tiled by its eight `round.*` spans."""
 
     def __init__(self, pk: MarlinProvingKey, device=None,
                  msm_engine: Optional[str] = None,
@@ -266,8 +236,6 @@ class TorchProver:
         # share its copy)
         self.srs_shards = None if mesh is None else [
             DevicePoints(p) for p in replicated(mesh, points)]
-        self.last_stage_times: dict = {}
-        self.last_stage_memory: dict = {}
 
         coo = getattr(pk, "coo_np", None) or coo_arrays(pk.r1cs)
         self.coo = [tuple(torch.as_tensor(np.asarray(a, np.int64), device=dev)
@@ -324,6 +292,11 @@ class TorchProver:
     def _msm(self, offset: int, coeffs: torch.Tensor) -> torch.Tensor:
         """The commitment MSM as one XYZZ point [4, 12] on the device
         (sharded over the mesh, as prover_jax._msm_dev, when there is one)."""
+        with spans.span("msm", points=coeffs.shape[0],
+                        engine=self.msm_engine):
+            return self._msm_point(offset, coeffs)
+
+    def _msm_point(self, offset: int, coeffs: torch.Tensor) -> torch.Tensor:
         scalars = to_msm_digits(coeffs)
         if self.mesh is not None:
             return msm_sharded(
@@ -345,13 +318,14 @@ class TorchProver:
         ]
         points = xyzz_to_affine(torch.stack(
             [self._msm(off, coeffs) for coeffs, off, _hid in items]))
-        out = []
-        for pt, rand_poly in zip(points, rand_list):
-            if rand_poly is not None:
-                pt = pt.add(msm_host.msm(self.pk.srs.gamma_powers_g1[:2],
-                                         rand_poly))
-            out.append((kzg.Commitment(pt), rand_poly))
-        return out
+        hiding = [i for i, r in enumerate(rand_list) if r is not None]
+        if hiding:
+            with spans.span("host.hiding", points=2 * len(hiding)):
+                for i in hiding:
+                    points[i] = points[i].add(msm_host.msm(
+                        self.pk.srs.gamma_powers_g1[:2], rand_list[i]))
+        return [(kzg.Commitment(pt), rand_poly)
+                for pt, rand_poly in zip(points, rand_list)]
 
     # -- main ----------------------------------------------------------------------
 
@@ -360,20 +334,27 @@ class TorchProver:
               ) -> MarlinProof:
         """instance: [1] + public field elements; witness_bits: the witness
         values (array or tensor of small integers)."""
-        rng = rng or _random.Random()
+        if len(instance) != self.pk.r1cs.num_instance or instance[0] != 1:
+            raise ValueError("instance must be [1] + the public inputs")
+        with spans.span("prove", engine=self.msm_engine, n=self.n), \
+                spans.rounds(self.device) as round_:
+            return self._prove(instance, witness_bits, rng or _random.Random(),
+                               zk, round_)
+
+    def _prove(self, instance, witness_bits, rng: _random.Random, zk: bool,
+               round_) -> MarlinProof:
         pk, dev = self.pk, self.device
         n, log_n, x_size, d_max = self.n, self.log_n, self.x_size, self.d_max
-        if len(instance) != pk.r1cs.num_instance or instance[0] != 1:
-            raise ValueError("instance must be [1] + the public inputs")
-
-        st = _StageTimer(dev, whole_device=self.mesh is not None)
+        round_("r1_polys")
         t = Transcript()
-        pk.vk.absorb_into(t)
-        t.absorb_fr_list(b"instance", instance)
+        with spans.span("host.transcript"):
+            pk.vk.absorb_into(t)
+            t.absorb_fr_list(b"instance", instance)
 
+        with spans.wait("instance", upload=8 * len(instance)):
+            inst = torch.as_tensor(np.asarray(instance, np.int64), device=dev)
         z = torch.cat([
-            torch.as_tensor(np.asarray(instance, np.int64), device=dev),
-            torch.as_tensor(witness_bits, device=dev).to(torch.int64)])
+            inst, torch.as_tensor(witness_bits, device=dev).to(torch.int64)])
 
         # ---- round 1 ---------------------------------------------------------
         za_list = []
@@ -392,12 +373,13 @@ class TorchProver:
         x_on_h = P.ntt_to(log_n, x_poly)
         w_full = P.intt(log_n, F.sub(_small_to_mont(z_slots), x_on_h))
         w_hat, _w_rem = P.div_vanishing(w_full, x_size)
-        st.mark("r1_polys")
+        round_("r1_commits")
 
         if zk:
-            r_w = [rng.randrange(R_MOD) for _ in range(2)]
-            r_a = [rng.randrange(R_MOD) for _ in range(2)]
-            r_b = [rng.randrange(R_MOD) for _ in range(2)]
+            with spans.span("host.mask_draw", elements=6):
+                r_w = [rng.randrange(R_MOD) for _ in range(2)]
+                r_a = [rng.randrange(R_MOD) for _ in range(2)]
+                r_b = [rng.randrange(R_MOD) for _ in range(2)]
             ratio_pos, ratio_val = [], []
             for j in range(n // x_size):
                 ratio_pos += [j * x_size, j * x_size + 1]
@@ -422,16 +404,17 @@ class TorchProver:
          (comm_s, rand_s)) = self._commit_batch(
             [(w_hat, 0, hb), (za_coeffs, 0, hb), (zb_coeffs, 0, hb),
              (s_coeffs, 0, hb)], rng=rng)
-        st.mark("r1_commits")
-        for lbl, c in ((b"w", comm_w), (b"za", comm_za), (b"zb", comm_zb),
-                       (b"s", comm_s)):
-            t.absorb_g1(lbl, c.point)
-        alpha = t.challenge_fr(b"alpha")
-        eta_a = t.challenge_fr(b"eta_a")
-        eta_b = t.challenge_fr(b"eta_b")
-        eta_c = t.challenge_fr(b"eta_c")
+        with spans.span("host.transcript"):
+            for lbl, c in ((b"w", comm_w), (b"za", comm_za),
+                           (b"zb", comm_zb), (b"s", comm_s)):
+                t.absorb_g1(lbl, c.point)
+            alpha = t.challenge_fr(b"alpha")
+            eta_a = t.challenge_fr(b"eta_a")
+            eta_b = t.challenge_fr(b"eta_b")
+            eta_c = t.challenge_fr(b"eta_c")
 
         # ---- round 2 ---------------------------------------------------------
+        round_("r2_polys")
         h = domain(log_n)
         v_h_alpha = h.vanishing_eval(alpha)
         alpha_s = P.scalar(alpha, dev)
@@ -469,19 +452,20 @@ class TorchProver:
         h1_coeffs = h1_coeffs[: min(h1_coeffs.shape[0], 2 * n + 2)].clone()
         g1_coeffs = rem[1:]
         g1_shift = d_max - (n - 2)
-        st.mark("r2_polys")
+        round_("r2_commits")
 
         ((comm_t, _), (comm_g1, rand_g1), (comm_g1s, rand_g1s),
          (comm_h1, rand_h1)) = self._commit_batch(
             [(t_coeffs, 0, False), (g1_coeffs, 0, hb),
              (g1_coeffs, g1_shift, hb), (h1_coeffs, 0, hb)], rng=rng)
-        st.mark("r2_commits")
-        for lbl, c in ((b"t", comm_t), (b"g1", comm_g1), (b"g1s", comm_g1s),
-                       (b"h1", comm_h1)):
-            t.absorb_g1(lbl, c.point)
-        beta1 = t.challenge_fr(b"beta1")
+        with spans.span("host.transcript"):
+            for lbl, c in ((b"t", comm_t), (b"g1", comm_g1),
+                           (b"g1s", comm_g1s), (b"h1", comm_h1)):
+                t.absorb_g1(lbl, c.point)
+            beta1 = t.challenge_fr(b"beta1")
 
         # ---- round 3 ---------------------------------------------------------
+        round_("r3_polys_commits")
         v_h_beta1 = h.vanishing_eval(beta1)
         scale_int = v_h_alpha * v_h_beta1 % R_MOD
         scale_s = P.scalar(scale_int, dev)
@@ -528,19 +512,20 @@ class TorchProver:
             commit_items += [(g2, 0, False), (g2, shift, False),
                              (h2, 0, False)]
         flat = self._commit_batch(commit_items)
-        for i, sigma in enumerate(sigmas):
-            (cg2, _), (cg2s, _), (ch2, _) = flat[3 * i: 3 * i + 3]
-            comm_g2.append(cg2)
-            comm_g2s.append(cg2s)
-            comm_h2.append(ch2)
-            t.absorb_fr(b"sigma", sigma)
-            t.absorb_g1(b"g2", cg2.point)
-            t.absorb_g1(b"g2s", cg2s.point)
-            t.absorb_g1(b"h2", ch2.point)
-        beta2 = t.challenge_fr(b"beta2")
-        st.mark("r3_polys_commits")
+        with spans.span("host.transcript"):
+            for i, sigma in enumerate(sigmas):
+                (cg2, _), (cg2s, _), (ch2, _) = flat[3 * i: 3 * i + 3]
+                comm_g2.append(cg2)
+                comm_g2s.append(cg2s)
+                comm_h2.append(ch2)
+                t.absorb_fr(b"sigma", sigma)
+                t.absorb_g1(b"g2", cg2.point)
+                t.absorb_g1(b"g2s", cg2s.point)
+                t.absorb_g1(b"h2", ch2.point)
+            beta2 = t.challenge_fr(b"beta2")
 
         # ---- evaluations -----------------------------------------------------
+        round_("evals")
         b1_polys = (w_hat, za_coeffs, zb_coeffs, s_coeffs, t_coeffs,
                     g1_coeffs, h1_coeffs)
         b2_polys = []
@@ -552,20 +537,21 @@ class TorchProver:
         all_ints = F.to_ints(torch.cat([rows1, rows2]))
         evals_beta1 = all_ints[:7]
         evals_beta2 = [all_ints[7 + 5 * i: 12 + 5 * i] for i in range(3)]
-        t.absorb_fr_list(b"evals_beta1", evals_beta1)
-        for e in evals_beta2:
-            t.absorb_fr_list(b"evals_beta2", e)
-        xi1 = t.challenge_fr(b"xi1")
-        xi2 = t.challenge_fr(b"xi2")
-        st.mark("evals")
+        with spans.span("host.transcript"):
+            t.absorb_fr_list(b"evals_beta1", evals_beta1)
+            for e in evals_beta2:
+                t.absorb_fr_list(b"evals_beta2", e)
+            xi1 = t.challenge_fr(b"xi1")
+            xi2 = t.challenge_fr(b"xi2")
 
+        round_("open_beta1")
         open_beta1 = self._batch_open(
             [(w_hat, 0, rand_w), (za_coeffs, 0, rand_za),
              (zb_coeffs, 0, rand_zb), (s_coeffs, 0, rand_s),
              (t_coeffs, 0, None), (g1_coeffs, 0, rand_g1),
              (g1_coeffs, g1_shift, rand_g1s), (h1_coeffs, 0, rand_h1)],
             beta1, xi1)
-        st.mark("open_beta1")
+        round_("open_beta2")
         beta2_polys = []
         for md, g2, h2, shift in zip(self.mat, g2_list, h2_list, g2_shifts):
             beta2_polys += [(md["row_coeffs"], 0, None),
@@ -573,9 +559,6 @@ class TorchProver:
                             (md["val_coeffs"], 0, None), (g2, 0, None),
                             (g2, shift, None), (h2, 0, None)]
         open_beta2 = self._batch_open(beta2_polys, beta2, xi2)
-        st.mark("open_beta2")
-        self.last_stage_times = st.times
-        self.last_stage_memory = st.memory
 
         return MarlinProof(
             comm_w=comm_w, comm_za=comm_za, comm_zb=comm_zb, comm_s=comm_s,
@@ -631,7 +614,8 @@ class TorchProver:
         w_point = xyzz_to_affine(self._msm(0, w_coeffs))[0]
         rand_eval = 0
         if any_rand:
-            wr, rand_eval = poly_div_linear(comb_rand, z)
-            w_point = w_point.add(
-                msm_host.msm(self.pk.srs.gamma_powers_g1[: len(wr)], wr))
+            with spans.span("host.hiding", points=len(comb_rand) - 1):
+                wr, rand_eval = poly_div_linear(comb_rand, z)
+                w_point = w_point.add(
+                    msm_host.msm(self.pk.srs.gamma_powers_g1[: len(wr)], wr))
         return kzg.OpeningProof(w=w_point, rand_eval=rand_eval)

@@ -26,6 +26,7 @@ import torch
 from .field_params import Q_MOD, R_MOD
 
 from .. import kernels
+from ..utils import spans
 
 MASK16 = 0xFFFF
 MASK32 = 0xFFFFFFFF
@@ -162,13 +163,19 @@ class FieldOps:
             raw = b"".join((int(v) % p).to_bytes(nbytes, "little")
                            for v in values)
         arr = np.frombuffer(raw, dtype="<u4").reshape(-1, self.L)
-        return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+        with spans.wait("from_ints", upload=arr.nbytes):
+            return torch.from_numpy(arr.view(np.int32).copy()).to(device)
 
     def to_ints(self, x: torch.Tensor, mont: bool = True) -> List[int]:
         """[.., L] limbs -> Python ints (values mod p, leaving Montgomery form
-        unless mont=False)."""
-        arr = np.ascontiguousarray(
-            x.detach().reshape(-1, self.L).cpu().numpy()).view("<u4")
+        unless mont=False), in one copy to the host."""
+        with spans.wait("to_ints", readback=spans.nbytes(x)):
+            host = x.detach().cpu()
+        return self.host_ints(host.numpy(), mont)
+
+    def host_ints(self, limbs: np.ndarray, mont: bool = True) -> List[int]:
+        """to_ints of limbs already on the host."""
+        arr = np.ascontiguousarray(limbs.reshape(-1, self.L)).view("<u4")
         out = [int.from_bytes(row.tobytes(), "little") for row in arr]
         if mont:
             return [v * self.R_inv % self.modulus for v in out]

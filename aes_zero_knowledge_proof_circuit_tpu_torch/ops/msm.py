@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import spans
 from ..utils.native import native
 from . import curve
 from .curve_host import AffinePoint, g1_infinity, g1_point
@@ -388,8 +389,10 @@ def jac_to_xyzz(p) -> torch.Tensor:
 def xyzz_to_affine(t: torch.Tensor) -> List[AffinePoint]:
     """[..., 4, 12] XYZZ Montgomery points (any device) -> host affine
     points, with one copy to the host."""
-    t = t.reshape(-1, 4, FQ.L).cpu()
-    xs, ys, zzs, zzzs = (FQ.to_ints(t[:, i]) for i in range(4))
+    with spans.wait("xyzz_to_affine", readback=spans.nbytes(t)):
+        t = t.reshape(-1, 4, FQ.L).cpu()
+    arr = t.numpy()
+    xs, ys, zzs, zzzs = (FQ.host_ints(arr[:, i]) for i in range(4))
     out = []
     for x, y, zz, zzz in zip(xs, ys, zzs, zzzs):
         if zz == 0:

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import spans
 from . import curve
 from .field import fq_ops
 from . import msm
@@ -130,7 +131,8 @@ def land(digits16: torch.Tensor, lanes: Optional[int] = None,
     nb = windows * BUCKETS
     ds, order = torch.sort(window_digits(digits16, w0, w1), dim=1,
                            stable=True)
-    idx = order[ds > 0].to(torch.int32)
+    with spans.wait("k4_nonzero_digits"):
+        idx = order[ds > 0].to(torch.int32)
     del order
     # where each nonzero digit's run starts in the sorted rows, then the
     # run lengths: bucket w * B + d - 1 holds m[w, d - 1] pairs
@@ -145,7 +147,8 @@ def land(digits16: torch.Tensor, lanes: Optional[int] = None,
     top_level = max(1, (n - 1).bit_length())
     step = 2 ** torch.arange(top_level + 1, device=dev)[:, None]
     per = (m[None] + step - 1) // step
-    tot, most = torch.stack([per.sum(1), per.max(1).values]).tolist()
+    with spans.wait("k4_level_sizes", readback=16 * (top_level + 1)):
+        tot, most = torch.stack([per.sum(1), per.max(1).values]).tolist()
     levels = 1 if tot[0] else 0
     while (levels < top_level and most[levels] > 1
            and -(-tot[levels + 1] // lanes) >= MIN_CHUNK):
@@ -197,8 +200,11 @@ def scan_msm(points: torch.Tensor, plan: Landing,
     if geo.dtype != np.int64 or geo.shape != (plan.levels, 3) or \
             not geo.flags.c_contiguous:
         raise ValueError(f"bad level geometry {geo.shape} {geo.dtype}")
-    if plan.idx.numel() and int(plan.idx.max()) >= points.shape[0]:
-        raise ValueError("point index out of range")
+    if plan.idx.numel():
+        with spans.wait("k4_index_check", readback=4):
+            top = int(plan.idx.max())
+        if top >= points.shape[0]:
+            raise ValueError("point index out of range")
     points = points.contiguous()
     dev = points.device
     items = geo[:, 0].tolist()

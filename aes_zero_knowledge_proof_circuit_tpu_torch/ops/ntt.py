@@ -27,6 +27,7 @@ from .field_params import (
 )
 
 from .. import kernels
+from ..utils import spans
 from .field import aligned, fr_ops, table_built
 
 F = fr_ops()
@@ -157,17 +158,21 @@ class NTTEngine:
 
     def ntt(self, coeffs: torch.Tensor) -> torch.Tensor:
         """[n, 8] coefficients -> evaluations on <omega> (natural order)."""
-        return self._run(coeffs, self.fwd_table, None)
+        with spans.span("ntt", n=self.n, rows=1):
+            return self._run(coeffs, self.fwd_table, None)
 
     def intt(self, evals: torch.Tensor) -> torch.Tensor:
-        return self._run(evals, self.inv_table, self.n_inv)
+        with spans.span("ntt", n=self.n, rows=1):
+            return self._run(evals, self.inv_table, self.n_inv)
 
     def ntt_rows(self, coeffs: torch.Tensor) -> torch.Tensor:
         """[B, n, 8]: the NTT of every row, in the launches of one NTT."""
-        return self._run(coeffs, self.fwd_table, None, rows=True)
+        with spans.span("ntt", n=self.n, rows=coeffs.shape[0]):
+            return self._run(coeffs, self.fwd_table, None, rows=True)
 
     def intt_rows(self, evals: torch.Tensor) -> torch.Tensor:
-        return self._run(evals, self.inv_table, self.n_inv, rows=True)
+        with spans.span("ntt", n=self.n, rows=evals.shape[0]):
+            return self._run(evals, self.inv_table, self.n_inv, rows=True)
 
     def ntt_plain(self, coeffs: torch.Tensor) -> torch.Tensor:
         """The same transform through the plain passes (any device)."""

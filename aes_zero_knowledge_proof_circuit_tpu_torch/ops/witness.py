@@ -20,6 +20,7 @@ import torch
 
 from ..models.witness_plan import CompiledPlan
 from ..parallel.mesh import Mesh, on_device, shard_leading
+from ..utils import spans
 from ..utils.device import resolve_device
 
 
@@ -59,19 +60,23 @@ class WitnessEvaluator:
         rows = {np.shape(v)[0] for v in inputs.values()}
         if len(rows) != 1:
             raise ValueError(f"inputs disagree on the batch size: {rows}")
-        z = torch.zeros((rows.pop(), self.plan.num_vars), dtype=torch.int32,
-                        device=self.device)
-        z[:, 0] = 1
-        for name, (idx, slot) in self.inputs.items():
-            bits = torch.as_tensor(inputs[name], dtype=torch.int32,
-                                   device=self.device)
-            z[:, idx] = bits[:, slot]
-        for out, xi, yi, si, c in self.levels:
-            x, y, s = z[:, xi], z[:, yi], z[:, si]
-            z[:, out] = (c[0] + c[1] * x + c[2] * y + c[3] * s
-                         + c[4] * x * y + c[5] * s * x + c[6] * s * y)
-        inst_idx, inst_c, inst_var, inst_q = self.inst
-        z[:, inst_idx] = inst_c + inst_q * z[:, inst_var]
+        batch = rows.pop()
+        with spans.span("witness.fill", rows=batch):
+            z = torch.zeros((batch, self.plan.num_vars), dtype=torch.int32,
+                            device=self.device)
+            z[:, 0] = 1
+            for name, (idx, slot) in self.inputs.items():
+                with spans.wait("witness_bits", upload=4 * int(
+                        np.prod(np.shape(inputs[name])))):
+                    bits = torch.as_tensor(inputs[name], dtype=torch.int32,
+                                           device=self.device)
+                z[:, idx] = bits[:, slot]
+            for out, xi, yi, si, c in self.levels:
+                x, y, s = z[:, xi], z[:, yi], z[:, si]
+                z[:, out] = (c[0] + c[1] * x + c[2] * y + c[3] * s
+                             + c[4] * x * y + c[5] * s * x + c[6] * s * y)
+            inst_idx, inst_c, inst_var, inst_q = self.inst
+            z[:, inst_idx] = inst_c + inst_q * z[:, inst_var]
         return z
 
 

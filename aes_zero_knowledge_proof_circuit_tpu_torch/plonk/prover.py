@@ -27,13 +27,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..marlin.prover import _StageTimer
 from ..ops import kzg
 from ..ops import poly as P
 from ..ops.field import fr_ops
 from ..ops.field_params import R_MOD, fr_multiplicative_generator, inv_mod
 from ..ops.msm import msm_point, xyzz_to_affine
 from ..ops.poly_host import domain
+from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.errors import ProofError, require
 from ..utils.srs import device_powers
@@ -82,7 +82,6 @@ class TorchPlonkProver:
         self.omega = data.omega
         self.ks = data.ks
         self.g_cos = fr_multiplicative_generator()
-        self.last_stage_times: dict = {}
         self.srs_points = device_powers(pk.srs, dev)
 
         # the static columns from their evaluations: small selectors and
@@ -154,11 +153,19 @@ class TorchPlonkProver:
     def prove(self, assignment: Dict[int, int],
               public_values: Sequence[int], circuit,
               rng: Optional[_random.Random] = None) -> PlonkProof:
-        rng = rng or _random.Random()
+        """A proof of `assignment`; with `utils.spans` on, a `prove` span
+        tiled by its five `round.*` spans."""
+        with spans.span("prove", engine="mxu", n=self.n), \
+                spans.rounds(self.device) as round_:
+            return self._prove(assignment, public_values, circuit,
+                               rng or _random.Random(), round_)
+
+    def _prove(self, assignment, public_values, circuit, rng, round_
+               ) -> PlonkProof:
         pk, dev = self.pk, self.device
         n, log_n, log4 = self.n, self.log_n, self.log4
         _k1, k2_, k3_ = self.ks
-        st = _StageTimer(dev)
+        round_("r1_wires")
         scalar = lambda v: P.scalar(v % R_MOD, dev)
 
         wa_e, wb_e, wc_e = (field_rows(col, dev) for col in
@@ -183,7 +190,7 @@ class TorchPlonkProver:
             t.absorb_g1(lbl, cc.point)
         beta = t.challenge_fr(b"beta")
         gamma = t.challenge_fr(b"gamma")
-        st.mark("r1_wires")
+        round_("r2_grand_product")
 
         # ---- round 2: grand product --------------------------------------------
         bet, gam = scalar(beta), scalar(gamma)
@@ -208,7 +215,7 @@ class TorchPlonkProver:
         (comm_z,) = self._commit_batch((z_poly,))
         t.absorb_g1(b"z", comm_z.point)
         alpha = t.challenge_fr(b"alpha")
-        st.mark("r2_grand_product")
+        round_("r3_quotient")
 
         # ---- round 3: quotient on the 4n coset ---------------------------------
         a4, b4, c4, z4 = (self._cos(p) for p in (a_poly, b_poly, c_poly,
@@ -250,7 +257,7 @@ class TorchPlonkProver:
         for cc in comm_t:
             t.absorb_g1(b"t", cc.point)
         zeta = t.challenge_fr(b"zeta")
-        st.mark("r3_quotient")
+        round_("r4_evals")
 
         # ---- round 4: evaluations ------------------------------------------------
         zeta_omega = zeta * self.omega % R_MOD
@@ -265,7 +272,7 @@ class TorchPlonkProver:
                        (b"s1", ev_s1), (b"s2", ev_s2), (b"zw", ev_zw)):
             t.absorb_fr(lbl, e)
         v = t.challenge_fr(b"v")
-        st.mark("r4_evals")
+        round_("r5_open")
 
         # ---- round 5: linearization and openings ---------------------------
         zh_zeta = (pow(zeta, n, R_MOD) - 1) % R_MOD
@@ -307,8 +314,6 @@ class TorchPlonkProver:
         w_zw_poly, _ = self._div_linear(P.sub(z_poly, scalar(ev_zw)),
                                         zeta_omega)
         w_zeta, w_zeta_omega = self._commit_batch((w_zeta_poly, w_zw_poly))
-        st.mark("r5_open")
-        self.last_stage_times = st.times
         return PlonkProof(
             comm_a=comm_a, comm_b=comm_b, comm_c=comm_c, comm_z=comm_z,
             comm_t=comm_t, eval_a=ev_a, eval_b=ev_b, eval_c=ev_c,

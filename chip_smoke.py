@@ -207,6 +207,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
     TorchPlonkProver,
     field_rows,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils import spans
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import srs as S
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
     generate_srs_native,
@@ -947,15 +948,14 @@ def warm_prove(pk, label: str):
     """One timed zk prove through api.encrypt; (proof, launches in it)."""
     before = kernels.launch_counts()
     t0 = time.perf_counter()
-    proof = api.encrypt(MESSAGE, KEY, pk, rng=random.Random(2), zk=True)
+    proof = traced(lambda: api.encrypt(MESSAGE, KEY, pk, rng=random.Random(2),
+                                       zk=True))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     after = kernels.launch_counts()
     counts = {k: after[k] - before[k] for k in after}
-    stages = pk._prover.last_stage_times
     say(f"[main] warm prove (zk, {label}): {warm_s:.2f}s; stages "
-        + ", ".join(f"{k} {v:.3f}s" for k, v in stages.items())
-        + f" [{CARD}]")
+        f"{stage_text()} [{CARD}]")
     say(f"[main] launches in it: {counts}")
     return proof, counts
 
@@ -1180,7 +1180,7 @@ def counted(fn, names, where: str):
     must have launched."""
     kernels.reset_counts()
     t0 = time.perf_counter()
-    out = fn()
+    out = traced(fn)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -1188,16 +1188,38 @@ def counted(fn, names, where: str):
     return out, counts, seconds
 
 
-def stage_text(pk) -> str:
-    return ", ".join(f"{k} {v:.3f}s"
-                     for k, v in pk._prover.last_stage_times.items())
+# the round spans of the last prove that `traced` ran, in order
+ROUNDS: list = []
 
 
-def stage_memory_text(pk) -> str:
-    """Device memory at each stage's end of the last prove: allocated /
+def traced(fn):
+    """fn() with the port's spans on; keeps the round spans of the prove
+    that ended last in ROUNDS."""
+    spans.enable()
+    try:
+        return fn()
+    finally:
+        spans.disable()
+        got, _counters = spans.drain()
+        proves = [sp for sp in got if sp.name == "prove"]
+        last = max(proves, key=lambda sp: sp.t1).id if proves else None
+        ROUNDS[:] = sorted((sp for sp in got if sp.proof == last
+                            and sp.name.startswith("round.")),
+                           key=lambda sp: sp.t0)
+
+
+def stage_text() -> str:
+    """Host seconds of each round of the last prove (the queueing of
+    kernels a round launched, and its waits on the card)."""
+    return ", ".join(f"{sp.name[len('round.'):]} {(sp.t1 - sp.t0) / 1e9:.3f}s"
+                     for sp in ROUNDS)
+
+
+def stage_memory_text() -> str:
+    """Device memory at each round's end of the last prove: allocated /
     the peak so far."""
-    return ", ".join(f"{k} {gib(a)} / {gib(p)}"
-                     for k, (a, p) in pk._prover.last_stage_memory.items())
+    return ", ".join(f"{sp.name[len('round.'):]} {gib(sp.attrs['allocated'])}"
+                     f" / {gib(sp.attrs['peak'])}" for sp in ROUNDS)
 
 
 def flipped(data: bytes, byte: int) -> bytes:
@@ -1306,7 +1328,7 @@ def phase_cbc(dev) -> None:
         proof, counts, secs = counted(
             lambda: api.encrypt(MESSAGE, KEY, pk, rng=random.Random(seed),
                                 iv=IV), PROVE_PATH, f"the {label} CBC prove")
-        say(f"[cbc] {label} prove (zk): {secs:.3f}s; stages {stage_text(pk)};"
+        say(f"[cbc] {label} prove (zk): {secs:.3f}s; stages {stage_text()};"
             f" launches {counts} [{CARD}]")
     if not api.verify_encryption(vk, proof, ct, iv=IV):
         raise AssertionError("the CBC proof does not verify")
@@ -1435,7 +1457,7 @@ def phase_32b(dev) -> None:
                                 iv=IV), PROVE_PATH,
             f"the {label} 32-byte prove")
         say(f"[32B] {label} prove (zk): {secs:.3f}s; stages "
-            f"{stage_text(pk)}; launches {counts} [{CARD}]")
+            f"{stage_text()}; launches {counts} [{CARD}]")
     ct = api.compute_ciphertext(message, KEY, iv=IV)
     if not api.verify_encryption(vk, proof, ct, iv=IV):
         raise AssertionError("the 32-byte CBC proof does not verify")
@@ -1484,7 +1506,7 @@ def phase_64b(dev):
         if counts["msm_u8"]:
             raise AssertionError("the K3-engine prove launched K4")
         say(f"[64B] {label} prove (zk, K3 engine): {secs:.3f}s; stages "
-            f"{stage_text(pk)}; launches {counts} [{CARD}]")
+            f"{stage_text()}; launches {counts} [{CARD}]")
     pk4, _cold4 = pallas_engine_key(pk, message, "64B")
     proofs["warm4"], counts, secs = counted(
         lambda: api.encrypt(message, KEY, pk4, rng=random.Random(11)),
@@ -1492,7 +1514,7 @@ def phase_64b(dev):
     if counts["msm"]:
         raise AssertionError("the 64-byte K4-engine prove launched K3")
     say(f"[64B] warm prove (zk, K4 engine): {secs:.3f}s; stages "
-        f"{stage_text(pk4)}; launches {counts} [{CARD}]")
+        f"{stage_text()}; launches {counts} [{CARD}]")
     peak = torch.cuda.max_memory_allocated(dev)
     say(f"[64B] device memory: {gib(resident)} allocated before the proves "
         f"(every key of the run still held), peak {gib(peak)} in them "
@@ -1640,9 +1662,7 @@ def mesh_proves(pk, vk, mesh, message: bytes, tag: str, seeds, engine_path,
         prover = pk._mesh_provers[mesh]
         say(f"[mesh] {label} {tag} prove on the mesh (zk, "
             f"{'K4' if prover.msm_engine == 'pallas' else 'K3'} engine): "
-            f"{secs:.3f}s; stages "
-            + ", ".join(f"{k} {v:.3f}s"
-                        for k, v in prover.last_stage_times.items())
+            f"{secs:.3f}s; stages {stage_text()}"
             + f"; launches {counts}; peak memory {device_peaks(mesh)} "
             f"[{CARD}]")
         t0 = time.perf_counter()
@@ -1825,9 +1845,9 @@ def phase_1kb(dev) -> None:
         if counts["msm_u8"]:
             raise AssertionError("the K3-engine prove launched K4")
         say(f"[1KB] {label} prove (zk, K3 engine): {secs:.3f}s; stages "
-            f"{stage_text(pk)}; launches {counts} [{CARD}]")
+            f"{stage_text()}; launches {counts} [{CARD}]")
         say(f"[1KB] {label} prove's device memory at each stage's end "
-            f"(allocated / peak so far): {stage_memory_text(pk)}")
+            f"(allocated / peak so far): {stage_memory_text()}")
     held = torch.cuda.max_memory_allocated(dev) - before
     peak = max(peaks + [torch.cuda.max_memory_allocated(dev)])
     say(f"[1KB] device memory: {gib(resident)} allocated before the proves "
@@ -1872,7 +1892,7 @@ def phase_1kb(dev) -> None:
     if not api.verify_encryption(vk, proof4, ct):
         raise AssertionError("the 1 KB K4-engine proof does not verify")
     say(f"[1KB] warm prove (zk, K4 engine): {secs:.3f}s; stages "
-        f"{stage_text(pk4)}; launches {counts}; verifies; peak device "
+        f"{stage_text()}; launches {counts}; verifies; peak device "
         f"memory {gib(torch.cuda.max_memory_allocated(dev))} [{CARD}]")
 
 
@@ -1946,9 +1966,7 @@ def phase_plonk(dev) -> None:
                                  rng=random.Random(seed)), PROVE_PATH,
             f"the {label} AES-Plonk prove")
         say(f"[plonk] {label} prove (zk): {secs:.3f}s; stages "
-            + ", ".join(f"{k} {v:.3f}s"
-                        for k, v in prover.last_stage_times.items())
-            + f"; launches {counts} [{CARD}]")
+            f"{stage_text()}; launches {counts} [{CARD}]")
     t0 = time.perf_counter()
     if not plonk.verify(pk.vk, proof, public):
         raise AssertionError("the AES-Plonk proof does not verify")

@@ -19,7 +19,9 @@ Python stacks every millisecond meanwhile. It prints:
 
 - the card's name and power limit (nvidia-smi), the key's shapes and the
   warm prove seconds;
-- the profiled prove's wall seconds and stage times;
+- the profiled prove's wall seconds and its rounds (`round.*` spans,
+  `utils/spans.py`, on for every prove here): host seconds and the
+  allocator's bytes in use and peak at each round's end;
 - device busy seconds (the union of every device kernel and copy interval)
   and the device's idle share of the prove's wall time (with a mesh, over
   all its cards, and each card's busy seconds), and each card's peak
@@ -66,6 +68,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import (  # noqa: E402
 from aes_zero_knowledge_proof_circuit_tpu_torch.parallel.mesh import (  # noqa: E402
     make_mesh,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils import spans  # noqa: E402
 
 KEY = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
 IV = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
@@ -106,10 +109,36 @@ def busy_us(intervals) -> float:
     return total
 
 
+# the round spans of the last prove that `traced` ran, in order
+ROUNDS: list = []
+
+
+def traced(fn):
+    """fn() with the port's spans on; keeps the round spans of the prove
+    that ended last in ROUNDS."""
+    spans.enable()
+    try:
+        return fn()
+    finally:
+        spans.disable()
+        got, _counters = spans.drain()
+        proves = [sp for sp in got if sp.name == "prove"]
+        last = max(proves, key=lambda sp: sp.t1).id if proves else None
+        ROUNDS[:] = sorted((sp for sp in got if sp.proof == last
+                            and sp.name.startswith("round.")),
+                           key=lambda sp: sp.t0)
+
+
+def round_seconds(stage: str) -> float:
+    return next((sp.t1 - sp.t0) / 1e9 for sp in ROUNDS
+                if sp.name == "round." + stage)
+
+
 def prove(pk, message: bytes, iv, seed: int, mesh=None):
     t0 = time.perf_counter()
-    proof = api.encrypt(message, KEY, pk, rng=random.Random(seed), zk=True,
-                        iv=iv, mesh=mesh)
+    proof = traced(lambda: api.encrypt(message, KEY, pk,
+                                       rng=random.Random(seed), zk=True,
+                                       iv=iv, mesh=mesh))
     for d in range(torch.cuda.device_count()):
         torch.cuda.synchronize(d)
     return proof, time.perf_counter() - t0
@@ -185,8 +214,13 @@ def mask_draw_text(log_n: int, dev, r1_commits: float) -> str:
             f"r1_commits of the profiled prove {r1_commits:.3f}s")
 
 
-def stage_text(stages: dict) -> str:
-    return ", ".join(f"{k} {v:.3f}s" for k, v in stages.items())
+def stage_text() -> str:
+    """Each round of the last prove: host seconds (allocated / peak GiB
+    at its end)."""
+    return ", ".join(
+        f"{sp.name[len('round.'):]} {(sp.t1 - sp.t0) / 1e9:.3f}s "
+        f"({sp.attrs['allocated'] / 2**30:.2f} / "
+        f"{sp.attrs['peak'] / 2**30:.2f} GiB)" for sp in ROUNDS)
 
 
 def main() -> int:
@@ -225,7 +259,7 @@ def main() -> int:
     mesh = None
     if args.mesh:
         print(f"cold prove on {dev} alone: {secs:.3f}s; stages "
-              f"{stage_text(pk._prover.last_stage_times)}", flush=True)
+              f"{stage_text()}", flush=True)
         pk._prover = None                 # its state would double the card's
         torch.cuda.empty_cache()
         mesh = make_mesh(args.mesh, "cuda")
@@ -242,7 +276,7 @@ def main() -> int:
         print(f"cold prove on the mesh {[str(d) for d in mesh.devices]}: "
               f"{secs:.3f}s, equal byte for byte to the single-card proof, "
               f"verifies, a flipped bit of the last block rejected; stages "
-              f"{stage_text(pk._mesh_provers[mesh].last_stage_times)}",
+              f"{stage_text()}",
               flush=True)
     warm = [prove(pk, message, iv, 1 + i, mesh)[1] for i in range(args.warm)]
     print("warm proves (s): " + ", ".join(f"{s:.3f}" for s in warm)
@@ -266,8 +300,8 @@ def main() -> int:
         if args.batch:
             with StackSampler() as sampler:
                 t0 = time.perf_counter()
-                proofs = api.encrypt_batch(messages, KEY, pk,
-                                           rng=random.Random(9))
+                proofs = traced(lambda: api.encrypt_batch(
+                    messages, KEY, pk, rng=random.Random(9)))
                 torch.cuda.synchronize(dev)
                 wall = time.perf_counter() - t0
             proof = proofs[0]
@@ -276,11 +310,10 @@ def main() -> int:
             proof, wall = prove(pk, message, iv, 100, mesh)
     if not api.verify_encryption(vk, proof, ct, iv=iv):
         raise AssertionError("the profiled proof does not verify")
-    prover = pk._mesh_provers[mesh] if mesh else pk._prover
     what = f"batch of {args.batch}" if args.batch else "prove"
     print(f"profiled {what}: {wall:.3f}s wall, verifies; stages "
           + ("(of the proof that finished last) " if args.batch else "")
-          + stage_text(prover.last_stage_times))
+          + stage_text())
 
     per_name = defaultdict(lambda: [0.0, 0])
     intervals = []
@@ -313,7 +346,7 @@ def main() -> int:
                   f"{sampler.samples} samples: {where}")
     # after the peaks are read: the draw allocates on the card
     print(mask_draw_text(pk.marlin_pk.log_n, dev,
-                         prover.last_stage_times["r1_commits"]), flush=True)
+                         round_seconds("r1_commits")), flush=True)
 
     groups = defaultdict(lambda: [0.0, 0])
     for name, (us, calls) in per_name.items():

@@ -6,7 +6,8 @@ function.
   both `import jax` and `import aes_zero_knowledge_proof_circuit_tpu` fail;
 * an AST scan of every source file of the port, chip_smoke.py and the
   card scripts (profile_torch_prove.py, mesh_smoke.py,
-  time_sharded_msm.py, reckon_1kb.py, time_field_ntt.py, time_batch.py)
+  time_sharded_msm.py, reckon_1kb.py, time_field_ntt.py, time_batch.py,
+  time_spans.py)
   finds no import that names either;
 * the toy circuit is built, indexed, proved (zk=False, CPU) and verified by
   the port alone in such an interpreter;
@@ -52,7 +53,8 @@ def scanned_files():
                     ROOT / "scripts" / "time_sharded_msm.py",
                     ROOT / "scripts" / "reckon_1kb.py",
                     ROOT / "scripts" / "time_field_ntt.py",
-                    ROOT / "scripts" / "time_batch.py"]
+                    ROOT / "scripts" / "time_batch.py",
+                    ROOT / "scripts" / "time_spans.py"]
 
 
 def test_module_list_covers_the_slice():
@@ -65,7 +67,7 @@ def test_module_list_covers_the_slice():
                  "models.aes_circuit", "ops.kzg", "utils.serialize",
                  "utils.transcript", "utils.device", "plonk",
                  "plonk.circuit", "plonk.aes_map", "plonk.backend",
-                 "plonk.prover", "entry"):
+                 "plonk.prover", "entry", "utils.spans"):
         assert f"{port.__name__}.{leaf}" in names
 
 

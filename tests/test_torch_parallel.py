@@ -315,10 +315,13 @@ def test_encrypt_batch_on_a_mesh_hands_its_prover_the_single_device_inputs(
                            device=torch.device("cpu"), _prover=key_prover)
     pk._mesh_provers[mesh] = MustNotProve()
     want = api.encrypt_batch(messages, KEY, pk, rng=random.Random(5))
-    assert key_prover.calls == want and len(want) == 3
+    # two proves may be in flight (the pipeline): the recorder sees them in
+    # either order, the batch returns them in message order
+    assert sorted(key_prover.calls) == sorted(want) and len(want) == 3
     got = api.encrypt_batch(messages, KEY, pk, rng=random.Random(5),
                             mesh=mesh)
-    assert got == want and key_prover.calls == want + want
+    assert got == want
+    assert sorted(key_prover.calls[3:]) == sorted(want)
     fresh = make_mesh(3, "cpu")
     assert api.encrypt_batch(messages, KEY, pk, rng=random.Random(5),
                              mesh=fresh) == want

@@ -9,8 +9,7 @@ package's `ThreadPoolExecutor(max_workers=2)`), on the CPU.
   proofs the same seeds give in turn, zk=False and seeded zk=True.
 * `pipeline_depth` picks two for the 16- and 64-byte keys and one for the
   1 KB key on an 80 GB card; an error in either proof comes out of
-  `encrypt_batch`; launch counts stay exact while threads launch; a stage
-  ends on the calling stream, a mesh stage on its whole first card.
+  `encrypt_batch`; launch counts stay exact while threads launch.
 """
 
 import os
@@ -258,22 +257,3 @@ def test_launch_counts_are_exact_under_threads(monkeypatch):
     assert kernels.launch_counts()["fr_ops"] == threads * calls * 4
     kernels.reset_counts()
     assert kernels.launch_counts()["fr_ops"] == 0
-
-
-@pytest.mark.parametrize("mesh", [False, True])
-def test_a_stage_waits_for_its_stream_not_the_card(monkeypatch, mesh):
-    """A single-device prove's stage ends on the calling stream, so that
-    the other proof in flight on the card runs on; a mesh prove's stage
-    still waits for its first card as a whole."""
-    waited = []
-    stream = types.SimpleNamespace(
-        synchronize=lambda: waited.append("stream"))
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *args: stream)
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda *args: waited.append("card"))
-    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *args: 5)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *args: 7)
-    st = tp._StageTimer(torch.device("cuda", 0), whole_device=mesh)
-    st.mark("r1_polys")
-    assert waited == ["card" if mesh else "stream"]
-    assert st.memory == {"r1_polys": (5, 7)} and "r1_polys" in st.times

@@ -49,6 +49,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
     TorchPlonkProver,
     field_rows,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils import spans
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.errors import ZkAesError
 from tests.torch_threads import chain_circuit, jax_srs
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -261,9 +262,16 @@ def test_prover_matches_jax_and_host(keys):
     # the static columns interpolated on the device equal the key's
     assert [F.to_ints(p) for p in prover.sel_polys] == pk.selector_polys
     assert [F.to_ints(p) for p in prover.sig_polys] == pk.s_sigma_polys
-    got = prover.prove(assign, public, tc, rng=random.Random(5))
-    assert list(prover.last_stage_times) == [
-        "r1_wires", "r2_grand_product", "r3_quotient", "r4_evals", "r5_open"]
+    spans.enable()
+    try:
+        got = prover.prove(assign, public, tc, rng=random.Random(5))
+    finally:
+        spans.disable()
+    traced, _counters = spans.drain()
+    assert [sp.name for sp in sorted(traced, key=lambda sp: sp.t0)
+            if sp.name.startswith("round.")] == [
+        "round." + r for r in ("r1_wires", "r2_grand_product", "r3_quotient",
+                               "r4_evals", "r5_open")]
     want = proof_fields(got)
     assert proof_fields(jax_backend.prove(jpk, assign, public, jc,
                                           rng=random.Random(5))) == want

@@ -21,6 +21,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import (
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import TorchProver
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import serialize as ser
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils import spans
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -60,16 +61,23 @@ def test_nonzk_proof_equals_host(toy, toy_prover):
 def test_zk_proof_verifies_and_rejects_tampered_instance(toy, toy_prover):
     _cs, assignment, _pk = toy
     inst, wit = assignment(6, 2)
-    proof = toy_prover.prove(inst, np.asarray(wit), rng=random.Random(3),
-                             zk=True)
+    spans.enable()
+    try:
+        proof = toy_prover.prove(inst, np.asarray(wit), rng=random.Random(3),
+                                 zk=True)
+    finally:
+        spans.disable()
+    got, _counters = spans.drain()
     vk = toy_prover.pk.vk
     assert tverifier.verify(vk, inst, proof)
     bad = list(inst)
     bad[1] = (bad[1] + 1) % R_MOD
     assert not tverifier.verify(vk, bad, proof)
-    assert list(toy_prover.last_stage_times) == [
-        "r1_polys", "r1_commits", "r2_polys", "r2_commits",
-        "r3_polys_commits", "evals", "open_beta1", "open_beta2"]
+    assert [sp.name for sp in sorted(got, key=lambda sp: sp.t0)
+            if sp.name.startswith("round.")] == [
+        "round." + r for r in ("r1_polys", "r1_commits", "r2_polys",
+                               "r2_commits", "r3_polys_commits", "evals",
+                               "open_beta1", "open_beta2")]
 
 
 @pytest.mark.slow
