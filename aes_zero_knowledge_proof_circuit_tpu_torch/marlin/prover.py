@@ -16,7 +16,10 @@ bucket scan of ops/msm_device.py (kernel K4, the counterpart of
 msm_device). Left unset, ZKAES_MSM_MXU=0 selects "pallas", as it does in
 prover_jax. Each MSM leaves its point on the device; a batch of commitments
 comes to the host in one copy. The hiding terms stay on the host (two gamma
-powers), after the MSMs and in the same order, as in the reference.
+powers a commitment, eight an opening), in the same order as in the
+reference: computed in native code outside the interpreter lock
+(kzg.hiding_terms) after the batch's MSMs are enqueued and before their
+points are read back, so the card runs the MSMs meanwhile.
 
 With a `mesh` (parallel/mesh.py), as JaxProver(mesh=...): the six
 transforms on the 4n domain run as the four-step sharded NTT and every MSM
@@ -35,7 +38,7 @@ from typing import TYPE_CHECKING, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import kzg, msm_host
+from ..ops import kzg
 from ..ops import poly as P
 from ..ops.field import fr_ops
 from ..ops.field_params import R_MOD, fr_multiplicative_generator
@@ -232,6 +235,7 @@ class TorchProver:
         if points is None or points.device != dev:
             points = device_powers(pk.srs, dev)
         self.srs_dev = DevicePoints(points)
+        self.hiding_bases = kzg.HidingBases(pk.srs.gamma_powers_g1)
         # the SRS on every mesh device, placed once (shards on one card
         # share its copy)
         self.srs_shards = None if mesh is None else [
@@ -311,19 +315,24 @@ class TorchProver:
     def _commit_batch(self, items, rng: Optional[_random.Random] = None):
         """items: (coeffs, offset, hiding). Hiding randomness is drawn first,
         in item order, as prover_jax._commit_batch draws it. Every MSM of the
-        batch is enqueued before their points come to the host, in one copy."""
+        batch is enqueued, then the hiding terms are computed on the host
+        while the card runs them, then their points come to the host in one
+        copy."""
         rand_list = [
             [rng.randrange(R_MOD) for _ in range(2)] if hid else None
             for (_c, _off, hid) in items
         ]
-        points = xyzz_to_affine(torch.stack(
-            [self._msm(off, coeffs) for coeffs, off, _hid in items]))
+        stacked = torch.stack(
+            [self._msm(off, coeffs) for coeffs, off, _hid in items])
         hiding = [i for i, r in enumerate(rand_list) if r is not None]
+        terms = []
         if hiding:
             with spans.span("host.hiding", points=2 * len(hiding)):
-                for i in hiding:
-                    points[i] = points[i].add(msm_host.msm(
-                        self.pk.srs.gamma_powers_g1[:2], rand_list[i]))
+                terms = kzg.hiding_terms(self.hiding_bases,
+                                         [rand_list[i] for i in hiding])
+        points = xyzz_to_affine(stacked)
+        for i, term in zip(hiding, terms):
+            points[i] = points[i].add(term)
         return [(kzg.Commitment(pt), rand_poly)
                 for pt, rand_poly in zip(points, rand_list)]
 
@@ -597,25 +606,28 @@ class TorchProver:
 
     def _batch_open(self, polys, z: int, xi: int) -> kzg.OpeningProof:
         max_len = max(off + p.shape[0] for p, off, _ in polys)
-        comb_rand = [0] * (kzg.HIDING_POWERS + 1)
         xi_pows: List[int] = []
         xi_pow = 1
-        any_rand = False
-        for _coeffs, _off, rand_poly in polys:
+        for _ in polys:
             xi_pows.append(xi_pow)
-            if rand_poly is not None:
-                any_rand = True
-                for i, c in enumerate(rand_poly):
-                    comb_rand[i] = (comb_rand[i] + xi_pow * c) % R_MOD
             xi_pow = xi_pow * xi % R_MOD
         w_coeffs = self._open_quotient(
             [(p, off) for p, off, _r in polys],
             F.from_ints(xi_pows, self.device), z, max_len)
-        w_point = xyzz_to_affine(self._msm(0, w_coeffs))[0]
-        rand_eval = 0
-        if any_rand:
-            with spans.span("host.hiding", points=len(comb_rand) - 1):
+        w_dev = self._msm(0, w_coeffs)
+        # the hiding term, on the host while the card runs the MSM
+        rand_eval, terms = 0, []
+        rands = [(x, r) for x, (_p, _off, r) in zip(xi_pows, polys)
+                 if r is not None]
+        if rands:
+            with spans.span("host.hiding", points=kzg.HIDING_POWERS):
+                comb_rand = [0] * (kzg.HIDING_POWERS + 1)
+                for xi_pow, rand_poly in rands:
+                    for i, c in enumerate(rand_poly):
+                        comb_rand[i] = (comb_rand[i] + xi_pow * c) % R_MOD
                 wr, rand_eval = poly_div_linear(comb_rand, z)
-                w_point = w_point.add(
-                    msm_host.msm(self.pk.srs.gamma_powers_g1[: len(wr)], wr))
+                terms = kzg.hiding_terms(self.hiding_bases, [wr])
+        w_point = xyzz_to_affine(w_dev)[0]
+        for term in terms:
+            w_point = w_point.add(term)
         return kzg.OpeningProof(w=w_point, rand_eval=rand_eval)

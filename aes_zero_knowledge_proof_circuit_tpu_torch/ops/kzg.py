@@ -22,6 +22,7 @@ import random as _random
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from ..utils import native, spans
 from .curve_host import (
     AffinePoint,
     g1_generator,
@@ -29,6 +30,7 @@ from .curve_host import (
     g2_generator,
 )
 from .field_params import R_MOD
+from .msm_host import _msm_python
 from .msm_host import msm as _host_msm
 from .pairing_host import multi_pairing
 from .poly_host import poly_div_linear, poly_eval
@@ -133,6 +135,45 @@ def commit(
         hid = _host_msm(srs.gamma_powers_g1[: len(rand_poly)], rand_poly)
         point = point.add(hid)
     return Commitment(point), rand_poly
+
+
+class HidingBases:
+    """The SRS's gamma powers for `hiding_terms`: the points, and the same
+    points packed once in the native library's layout. Making one loads
+    the library (under its build lock), so no prove waits on a build."""
+
+    def __init__(self, gamma_powers: Sequence[AffinePoint]):
+        self.points = list(gamma_powers)
+        self.packed, self.inf = native.pack_points(self.points)
+        try:
+            native.native()
+        except native.NativeUnavailable:
+            pass    # hiding_terms runs the Python Pippenger
+
+
+def hiding_terms(bases: HidingBases,
+                 rand_polys: Sequence[Sequence[int]]) -> List[AffinePoint]:
+    """[sum_j r_j gamma_powers_g1[j] for r in rand_polys], the hiding terms
+    of commitments and openings. Each is one native Pippenger call, which
+    runs outside the interpreter lock, or msm_host's Python Pippenger where
+    the library cannot load; the counters `hiding_terms` and
+    `hiding_terms_python` count which ran."""
+    out, python = [], 0
+    for rand_poly in rand_polys:
+        scalars = [c % R_MOD for c in rand_poly]
+        n = len(scalars)
+        if n > len(bases.points):
+            raise ValueError(f"a hiding poly of {n} terms exceeds the "
+                             f"{len(bases.points)} gamma powers")
+        term = native.g1_msm_arrays(bases.packed[:n], bases.inf[:n],
+                                    native.pack_scalars(scalars))
+        if term is None:
+            python += 1
+            term = _msm_python(bases.points[:n], scalars)
+        out.append(term)
+    spans.count("hiding_terms", len(out) - python)
+    spans.count("hiding_terms_python", python)
+    return out
 
 
 def batch_open(

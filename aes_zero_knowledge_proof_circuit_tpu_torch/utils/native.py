@@ -95,6 +95,9 @@ def lib() -> Optional[ctypes.CDLL]:
                 os.replace(tmp, so)
             cdll = ctypes.CDLL(so)
             cdll.zk_g1_msm.restype = ctypes.c_int
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            cdll.zk_g1_msm.argtypes = [u64p, ctypes.POINTER(ctypes.c_uint8),
+                                       u64p, ctypes.c_size_t, u64p]
             cdll.zk_g1_scale_base.restype = ctypes.c_int
             cdll.zk_g1_powers_fixed_base.restype = ctypes.c_int
             cdll.zk_g1_batch_normalize.restype = ctypes.c_int
@@ -215,13 +218,32 @@ def g1_msm(points, scalars: Sequence[int]):
     if packed is not None:      # utils/srs.PackedPowers: no per-point packing
         return g1_msm_packed(packed, pack_scalars(scalars))
     pts, inf = pack_points(points)
-    sca = pack_scalars(scalars)
+    return g1_msm_arrays(pts, inf, pack_scalars(scalars))
+
+
+def g1_msm_arrays(pts: np.ndarray, inf: np.ndarray, scalars_u64: np.ndarray):
+    """Pippenger MSM over points packed by `pack_points` and [n, 4] u64
+    scalars below 2^256, in one call that runs outside the interpreter lock
+    (ctypes releases it). Returns AffinePoint or None when the native
+    library is unavailable."""
+    cdll = lib()
+    if cdll is None or pts.shape[0] == 0:
+        return None
+    n = pts.shape[0]
+    if not (pts.dtype == np.uint64 and pts.shape == (n, 12)
+            and inf.dtype == np.uint8 and inf.shape == (n,)
+            and scalars_u64.dtype == np.uint64
+            and scalars_u64.shape == (n, 4)
+            and pts.flags.c_contiguous and inf.flags.c_contiguous
+            and scalars_u64.flags.c_contiguous):
+        raise ValueError("g1_msm_arrays takes contiguous [n, 12] u64 points, "
+                         "[n] u8 flags and [n, 4] u64 scalars")
     out = np.zeros(18, np.uint64)
     rc = cdll.zk_g1_msm(
         pts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
         inf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        sca.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        ctypes.c_size_t(len(points)),
+        scalars_u64.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ctypes.c_size_t(n),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
     )
     if rc != 0:

@@ -21,13 +21,16 @@ both. The spans the port opens:
     prove                            one proof (sets its proof id)
     round.<stage>                    the stages of a prove, end to end
     host.mask_draw                   the zk masks drawn on the host
-    host.hiding                      the hiding terms' host MSMs
+    host.hiding                      the hiding terms' host MSMs, computed
+                                     while the card runs their batch's MSMs
     host.transcript                  absorbs and challenges between rounds
     msm, ntt                         one MSM, one transform
     wait.card                        the host blocked on the card
 
 and the counters: `card_waits` (the `wait.card` spans), `upload_bytes` and
-`readback_bytes` (the bytes those waits copied), `dropped_spans`.
+`readback_bytes` (the bytes those waits copied), `hiding_terms` and
+`hiding_terms_python` (the hiding terms computed by the native library and
+by the Python fallback, ops/kzg.hiding_terms), `dropped_spans`.
 """
 
 from __future__ import annotations
@@ -166,6 +169,14 @@ def wait(what: str, upload: int = 0, readback: int = 0):
             _counters["readback_bytes"] += readback
     return Span("wait.card", None, {"what": what,
                                     "bytes": upload or readback})
+
+
+def count(name: str, n: int) -> None:
+    """Add n to the counter `name` (nothing while off)."""
+    if not _on:
+        return
+    with _lock:
+        _counters[name] += n
 
 
 def nbytes(x: torch.Tensor) -> int:

@@ -5,6 +5,8 @@ the circuit and the key; `convert.proving_key_from` carries the key across.
 * zk=False proofs equal the host prover's byte for byte;
 * zk=True proofs verify (the port's verifier) and a tampered instance is
   rejected;
+* a seeded zk=True proof is the same with its hiding terms on the native
+  library and on the Python fallback, eight terms a proof;
 * (slow) zk=False and seeded zk=True proofs equal JaxProver's."""
 
 import random
@@ -20,6 +22,7 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.marlin import (
     verifier as tverifier,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import TorchProver
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils import native
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import serialize as ser
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import spans
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -78,6 +81,35 @@ def test_zk_proof_verifies_and_rejects_tampered_instance(toy, toy_prover):
         "round." + r for r in ("r1_polys", "r1_commits", "r2_polys",
                                "r2_commits", "r3_polys_commits", "evals",
                                "open_beta1", "open_beta2")]
+
+
+def counted_prove(prover, inst, wit, zk):
+    """A seeded prove with the spans' counters on: (serialized proof, the
+    hiding counters)."""
+    spans.enable()
+    try:
+        proof = prover.prove(inst, np.asarray(wit), rng=random.Random(17),
+                             zk=zk)
+    finally:
+        spans.disable()
+    _got, counters = spans.drain()
+    return ser.serialize_proof(proof), {
+        k: counters.get(k, 0) for k in ("hiding_terms", "hiding_terms_python")}
+
+
+def test_hiding_terms_native_equal_python_fallback(toy, toy_prover,
+                                                   monkeypatch):
+    _cs, assignment, _pk = toy
+    inst, wit = assignment(7, 5)
+    assert native.available()
+    got, counted = counted_prove(toy_prover, inst, wit, zk=True)
+    assert counted == {"hiding_terms": 8, "hiding_terms_python": 0}
+    assert counted_prove(toy_prover, inst, wit, zk=False)[1] == {
+        "hiding_terms": 0, "hiding_terms_python": 0}
+    monkeypatch.setattr(native, "lib", lambda: None)
+    want, counted = counted_prove(toy_prover, inst, wit, zk=True)
+    assert counted == {"hiding_terms": 0, "hiding_terms_python": 8}
+    assert got == want
 
 
 @pytest.mark.slow

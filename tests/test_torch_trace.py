@@ -8,6 +8,8 @@
   rounds and each round's MSMs, NTTs, host sections and card waits, one
   request id and one proof id; a two-deep `encrypt_batch` gives two
   proofs on two threads under the batch's root.
+* Each `host.hiding` span opens after its batch's MSMs and ends before
+  their points are read back (`wait.card(xyzz_to_affine)`).
 * The buffer's bound, the count of dropped spans, and `drain()`.
 """
 
@@ -254,6 +256,22 @@ def test_a_request_is_one_tree(encrypted):
     by_id = {sp.id: sp for sp in got}
     for sp in got:
         assert by_id.get(sp.parent, root).name != sp.name or sp is root
+
+
+def test_hiding_terms_run_while_the_msms_are_queued(encrypted):
+    got, counters = encrypted
+    kids = children(got)
+    hidings = [sp for sp in got if sp.name == "host.hiding"]
+    assert len(hidings) == 3   # r1_commits, r2_commits, open_beta1
+    for sp in hidings:
+        siblings = kids[sp.parent]
+        i = siblings.index(sp)
+        assert siblings[i - 1].name == "msm"
+        readback = [s for s in siblings[i + 1:] if s.name == "wait.card"
+                    and s.attrs["what"] == "xyzz_to_affine"][0]
+        assert siblings[i - 1].t1 <= sp.t0 and sp.t1 <= readback.t0
+    assert counters["hiding_terms"] == 8
+    assert counters["hiding_terms_python"] == 0
 
 
 def test_cpu_time_within_wall_time(encrypted):
