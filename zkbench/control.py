@@ -55,12 +55,12 @@ def main(argv=None) -> int:
         print("control: no CUDA card", file=sys.stderr)
         return run.NO_CARD
     from zkbench.program import Program
-    from zkbench.reference import AesReference
+    from zkbench.reference import make_reference
 
     program = Kept(Program(cell.config))
     wrapped = program if args.fault == "none" else Faulty(program,
                                                           args.fault)
-    reference = AesReference(cell.config, run.cache_dir(cell.config))
+    reference = make_reference(cell.config, run.cache_dir(cell.config))
     print(f"[control] {run.card_line()}; {cell.name}, fault {args.fault}",
           flush=True)
     for seed in args.seeds:

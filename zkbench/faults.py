@@ -8,7 +8,7 @@ what it gives back, so that a check can be shown to catch the fault:
   one its message has; this breaks the configurations' `sound`
   guarantee;
 - `altered`: the first proof of every call has one evaluation changed
-  after the program made it;
+  after the program made it (Marlin's first at beta1, Plonk's eval_a);
 - `stale`: every call after the first returns the first call's proofs
   again, a state that never moves on;
 - `half`: a call proves the first half of its messages and returns those
@@ -59,6 +59,9 @@ class Faulty:
                 self._first = proofs
             return self._first
         bad = copy.deepcopy(proofs[0])
-        bad.evals_beta1[0] = (bad.evals_beta1[0] + 1) % R_MOD
+        if self.program.config.proof_system == "marlin":
+            bad.evals_beta1[0] = (bad.evals_beta1[0] + 1) % R_MOD
+        else:
+            bad.eval_a = (bad.eval_a + 1) % R_MOD
         return [bad] + list(proofs[1:])
 

@@ -5,20 +5,19 @@ back for it, as bytes, must
 
 - parse by the format's rules and serialize back to the same bytes;
 - verify under the reference's own verifying key, for the public input
-  [1] + the bits of the reference's own AES-128 ciphertext of that
-  message under that key (the transcript, every AHP identity, both
-  batched KZG openings);
+  of the reference's own AES-128 ciphertext of that message under that
+  key;
 - fail to verify once one bit of that ciphertext, drawn from the seed,
   is flipped;
 - show the zero-knowledge masking the configurations state, as far as
-  the bytes can: the mask polynomial s is committed (not the point at
-  infinity) and not zero at beta1, and the opening at beta1 carries a
-  hiding value that is not zero. A proof made with zk=False has none of
-  the three; a zk proof has each but with odds of about 2^-252.
+  the bytes can; a check too slow for every proof is made on `SAMPLE`
+  proofs of the run, drawn from the seed.
 
-Each count below is compared with its limit, and the run is correct when
-none passes its limit. The comparisons are exact (a proof verifies or it
-does not), so every limit is 0.
+The reference of the cell's proof system (`reference.py`) says how each
+of these is read and checked. Each count below is compared with its
+limit, and the run is correct when none passes its limit. The
+comparisons are exact (a proof verifies or it does not), so every limit
+is 0.
 """
 
 from __future__ import annotations
@@ -27,8 +26,7 @@ import random
 from dataclasses import dataclass
 from typing import List, Optional
 
-from .ref import proof as ref_proof
-from .ref.verify import verify
+from .ref.proof import ProofBytesError
 from .traffic import Call
 
 # name -> limit; in the order the result line prints them
@@ -40,7 +38,7 @@ LIMITS = {
     "not_hiding": 0,       # proofs without the zero-knowledge masking
 }
 
-S_INDEX = 3            # s among the round-1 commitments and beta1's values
+SAMPLE = 1             # proofs a run whose masks are checked in full
 
 
 @dataclass
@@ -74,48 +72,45 @@ class Verdict:
 
 
 def judge(records: List[Record], reference, seed: int) -> Verdict:
-    key = reference.key()
     counts = dict.fromkeys(LIMITS, 0)
+    total = sum(len(rec.call.messages) for rec in records)
+    sample = set(random.Random(f"zkbench/sample/{seed}").sample(
+        range(total), min(SAMPLE, total)))
     attempted = failed = 0
     for rec in records:
         proofs = rec.proofs or []
         for i, message in enumerate(rec.call.messages):
+            fault = _one(reference, rec.call, i, message,
+                         proofs[i] if i < len(proofs) else None, seed,
+                         attempted in sample)
             attempted += 1
-            fault = _one(key, reference, rec.call, i, message,
-                         proofs[i] if i < len(proofs) else None, seed)
             if fault:
                 counts[fault] += 1
                 failed += 1
     return Verdict(attempted, failed, counts)
 
 
-def _one(key, reference, call: Call, i: int, message: bytes,
-         data: Optional[bytes], seed: int) -> Optional[str]:
+def _one(reference, call: Call, i: int, message: bytes,
+         data: Optional[bytes], seed: int, sampled: bool) -> Optional[str]:
     """The first fault of one message's proof, or None."""
     if data is None:
         return "missing"
     try:
-        parsed = ref_proof.parse(data)
-    except ref_proof.ProofBytesError:
+        parsed = reference.parse(data)
+    except ProofBytesError:
         return "bad_bytes"
-    if ref_proof.serialize(parsed) != data:
+    if reference.serialize(parsed) != data:
         return "bad_bytes"
     instance = reference.instance(message, call.key)
-    if not verify(key, instance, parsed):
+    if not reference.verify(instance, parsed):
         return "unverified"
-    flip = 1 + random.Random(f"zkbench/tamper/{seed}/{call.index}/{i}"
-                             ).randrange(len(instance) - 1)
+    flip = reference.fixed + random.Random(
+        f"zkbench/tamper/{seed}/{call.index}/{i}").randrange(
+            len(instance) - reference.fixed)
     tampered = list(instance)
     tampered[flip] ^= 1
-    if verify(key, tampered, parsed):
+    if reference.verify(tampered, parsed):
         return "tamper_accepted"
-    if not hiding(parsed):
+    if not reference.hiding(parsed, message, call.key, sampled):
         return "not_hiding"
     return None
-
-
-def hiding(proof: ref_proof.Proof) -> bool:
-    """Whether a proof shows the masking of a zero-knowledge proof."""
-    return (proof.comms[S_INDEX] is not None
-            and proof.evals_beta1[S_INDEX] != 0
-            and proof.openings[0][1] != 0)

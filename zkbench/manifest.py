@@ -1,11 +1,15 @@
 """`BENCHMARK.json` and the files it names, found by name.
 
 A cell (`workloads` entry) names a configuration and a traffic mix; the
-configuration's file is the one `configs` gives, the mix is
+configuration's file is the one `configs` gives (its proof system is
+`marlin` unless the file's `proof_system` says `plonk`), the mix is
 `zkbench/traffic/<traffic>.json`, and each metric is
 `zkbench/metrics/<name>.py`. A cell reports the end-to-end metrics
 (`--trace 0`) or the per-layer metrics (`--trace 1`) whose `workloads`
-list it, or that have no such list.
+list it, or that have no such list. A configuration's file holds the
+keys `load_config` reads (`READ`) and those that only describe it
+(`DESCRIBE`); any other key is refused, so a misspelt one cannot load as
+its default.
 """
 
 from __future__ import annotations
@@ -21,6 +25,14 @@ from .traffic import Mix, load_mix
 
 ROOT = Path(__file__).resolve().parent.parent
 HERE = Path(__file__).resolve().parent
+PROOF_SYSTEMS = ("marlin", "plonk")
+MSM_ENGINES = ("mxu", "pallas")
+# the keys `load_config` reads, and those that only describe the deployment
+# (`assumed`, the sizes a configuration assumed, is one a later file may add)
+READ = {"message_bytes", "mode", "msm_engine", "zk", "srs_seed",
+        "proof_system"}
+DESCRIBE = {"what", "source", "source_detail", "reduced", "shape",
+            "guarantees", "assumed"}
 
 
 @dataclass(frozen=True)
@@ -32,6 +44,7 @@ class Config:
     zk: bool
     srs_seed: int
     digest: str          # of the configuration's file: names its cache
+    proof_system: str = "marlin"
 
 
 @dataclass(frozen=True)
@@ -46,16 +59,30 @@ class Cell:
 def load_config(name: str, path: Path) -> Config:
     raw = Path(path).read_bytes()
     d = json.loads(raw)
+    unknown = sorted(set(d) - READ - DESCRIBE)
+    if unknown:
+        raise ValueError(f"{path}: keys the harness does not read: "
+                         f"{unknown}")
     cfg = Config(name=name, msg_len=int(d["message_bytes"]), mode=d["mode"],
                  msm_engine=d["msm_engine"], zk=bool(d["zk"]),
                  srs_seed=int(d["srs_seed"]),
-                 digest=hashlib.sha256(raw).hexdigest()[:12])
+                 digest=hashlib.sha256(raw).hexdigest()[:12],
+                 proof_system=d.get("proof_system", "marlin"))
+    if cfg.proof_system not in PROOF_SYSTEMS:
+        raise ValueError(f"{path}: proof_system must be one of "
+                         f"{PROOF_SYSTEMS}")
+    if cfg.msm_engine not in MSM_ENGINES:
+        raise ValueError(f"{path}: msm_engine must be one of {MSM_ENGINES}")
     if cfg.mode != "ecb" or cfg.msg_len <= 0 or cfg.msg_len % 16:
         raise ValueError(f"{path}: an ECB message of a positive multiple "
                          f"of 16 bytes")
     if not cfg.zk:
         raise ValueError(f"{path}: the configurations prove in zero "
                          f"knowledge")
+    if cfg.proof_system == "plonk" and (cfg.msg_len, cfg.msm_engine) != (
+            16, "mxu"):
+        raise ValueError(f"{path}: AES-Plonk proves one 16-byte block, "
+                         f"every commitment on K3 (msm_engine \"mxu\")")
     return cfg
 
 

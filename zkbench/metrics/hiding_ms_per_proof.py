@@ -1,7 +1,9 @@
 """Host milliseconds a proof spends on KZG's hiding terms: the length of
 the port's `host.hiding` spans (the host MSMs over the gamma powers in
 `_commit_batch` and `_batch_open`, with `poly_div_linear`), on the trace's
-clock, over the proofs the traced stretch completed."""
+clock, over the proofs the traced stretch completed. A Plonk proof's
+commitments carry no hiding term (its masks are multiples of the
+vanishing polynomial, drawn under `host.mask_draw`): there it reads 0."""
 
 from zkbench import program_spans
 

@@ -16,7 +16,8 @@ and the scalar width alone, whatever engine runs it:
 - bytes: each affine point (96 bytes) and scalar (32 bytes) read once.
 
 The least time is the larger of the multiply-adds over `IMAD_S` and the
-bytes over `HBM_BYTES_S` (`zkbench/peaks.py`). A better algorithm does
+bytes over `HBM_BYTES_S` (`zkbench/peaks.py`), summed over the MSMs of
+each span ("N", or "N1+N2+..." for a batch). A better algorithm does
 fewer additions than a bucket method's, none fewer than this count's, so
 the share stays under 100 %. Only spans with a kernel attributed to them
 count, in the least time as in the device time.
@@ -54,5 +55,5 @@ def read(run):
     busy = sum(k.end - k.start for _, ks in found for k in ks)
     if busy <= 0:
         return None
-    return 100.0 * sum(least_msm_seconds(int(sp.desc))
-                       for sp, _ in found) / busy
+    return 100.0 * sum(least_msm_seconds(int(n))
+                       for sp, _ in found for n in sp.desc.split("+")) / busy

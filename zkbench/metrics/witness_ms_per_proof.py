@@ -2,7 +2,10 @@
 `witness.fill` span of the port (`WitnessEvaluator.evaluate_batch`) to the
 end of the last kernel launched inside it (the span's own end where it
 launched none), on the trace's clock, over the proofs the traced stretch
-completed; a batch's one fill counts once for its proofs."""
+completed; a batch's one fill counts once for its proofs. For Plonk the
+port's span is to wrap the witness (`aes_map.assign` and
+`wire_columns`) and its upload; without one a Plonk cell reads
+nothing."""
 
 from zkbench import program_spans
 

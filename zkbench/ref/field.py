@@ -28,13 +28,19 @@ Point = Optional[Tuple[int, int]]
 
 
 @functools.lru_cache(maxsize=None)
+def fr_multiplicative_generator() -> int:
+    """The smallest non-square of Fr: the tower's base, and the Plonk
+    permutation's coset shift."""
+    return next(g for g in range(2, 1000)
+                if pow(g, (R_MOD - 1) // 2, R_MOD) != 1)
+
+
+@functools.lru_cache(maxsize=None)
 def root_of_unity(log_n: int) -> int:
     """The primitive 2^log_n-th root of unity of Fr's canonical tower."""
     if not 0 <= log_n <= TWO_ADICITY:
         raise ValueError(f"no 2^{log_n} domain in Fr")
-    g = next(g for g in range(2, 1000)
-             if pow(g, (R_MOD - 1) // 2, R_MOD) != 1)
-    w = pow(g, T_ODD, R_MOD)
+    w = pow(fr_multiplicative_generator(), T_ODD, R_MOD)
     for _ in range(TWO_ADICITY - log_n):
         w = w * w % R_MOD
     return w

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -95,9 +95,9 @@ def matrix_entries(rows):
     return out
 
 
-def at_tau(columns, log_k: int, tau: int) -> List[int]:
-    """p(tau) for each column of values of a polynomial p on K = <w_k>:
-    p(tau) = (tau^k - 1) / k * sum_j e_j w^j / (tau - w^j)."""
+def lagrange_at(log_k: int, tau: int) -> List[int]:
+    """L_j(tau) for each j of K = <w_k>, the Lagrange basis at tau:
+    L_j(tau) = (tau^k - 1) / k * w^j / (tau - w^j)."""
     k = 1 << log_k
     w = root_of_unity(log_k)
     pw = [1] * k
@@ -112,12 +112,22 @@ def at_tau(columns, log_k: int, tau: int) -> List[int]:
         prefix[j] = acc
         acc = acc * d[j] % R_MOD
     inv = pow(acc, -1, R_MOD)
+    scale = (pow(tau, k, R_MOD) - 1) * pow(k, -1, R_MOD) % R_MOD
     weights = [0] * k
     for j in range(k - 1, -1, -1):
-        weights[j] = inv * prefix[j] % R_MOD * pw[j] % R_MOD
+        weights[j] = inv * prefix[j] % R_MOD * pw[j] % R_MOD * scale % R_MOD
         inv = inv * d[j] % R_MOD
-    scale = (pow(tau, k, R_MOD) - 1) * pow(k, -1, R_MOD) % R_MOD
-    return [sum(e * wt for e, wt in zip(col, weights)) % R_MOD * scale % R_MOD
+    return weights
+
+
+def at_tau(columns, log_k: int, tau: int,
+           weights: Optional[List[int]] = None) -> List[int]:
+    """p(tau) for each column of values of a polynomial p on K = <w_k>,
+    the barycentric sum of its values against `lagrange_at(log_k, tau)`
+    (given, where the caller keeps them)."""
+    if weights is None:
+        weights = lagrange_at(log_k, tau)
+    return [sum(e * wt for e, wt in zip(col, weights)) % R_MOD
             for col in columns]
 
 

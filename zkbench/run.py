@@ -298,11 +298,11 @@ def main(argv=None) -> int:
         return NO_CARD
     imported = time.perf_counter()
     from zkbench.program import Program
-    from zkbench.reference import AesReference
+    from zkbench.reference import make_reference
 
     result, lines = run_cell(
         cell, args.seed, args.seconds, bool(args.trace), Program(cell.config),
-        AesReference(cell.config, cache_dir(cell.config)),
+        make_reference(cell.config, cache_dir(cell.config)),
         setup_started=started, scratch=cache_dir(cell.config),
         imported=imported)
     found = forbidden_modules()

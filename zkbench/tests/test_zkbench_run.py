@@ -67,7 +67,7 @@ def test_a_planted_fault_is_not_correct(toy_pair, fault, traffic, count):
 @pytest.mark.parametrize("strip", ["none", "comm_s", "s_at_beta1",
                                    "hiding_value"])
 def test_hiding_needs_each_mask(toy_pair, strip):
-    from zkbench.judge import S_INDEX, hiding
+    from zkbench.reference import S_INDEX, hiding
     from zkbench.ref import proof as ref_proof
     from zkbench.traffic import calls
 

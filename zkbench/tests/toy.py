@@ -18,6 +18,7 @@ from zkbench import manifest
 from zkbench.ref.aes import bits_lsb_first
 from zkbench.ref.field import R_MOD
 from zkbench.ref.index import derive_key
+from zkbench.reference import AesReference
 from zkbench.traffic import load_mix
 
 SRS_SEED = 5
@@ -72,6 +73,7 @@ class ToyProgram:
             random.Random(config.srs_seed))
         self.prover = TorchProver(indexer.index(cs, srs, "cpu"), "cpu")
         self.serialize = serialize.serialize_proof
+        self.config = config
         self.zk = config.zk
         self._memo = {}
 
@@ -113,7 +115,10 @@ class ToyProgram:
         pass
 
 
-class ToyReference:
+class ToyReference(AesReference):
+    """The reference side of the toy: its R1CS copy and its own key, kept
+    in memory."""
+
     def __init__(self, config):
         from zkbench.ref.circuit.r1cs import R1CS
 
