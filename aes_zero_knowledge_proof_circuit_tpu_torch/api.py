@@ -1,11 +1,14 @@
 """Prove and verify AES-128 encryption — counterpart of the JAX package's api.
 
-    synthesize_keys(plaintext_length, mode=..., device=...)
+    synthesize_keys(plaintext_length, mode=..., device=...,
+                    proof_system="marlin")
         -> (AESProvingKey, vk)
+    synthesize_keys(16, proof_system="plonk", device=...)
+        -> (AESPlonkProvingKey, PlonkVerifyingKey)
     encrypt(message, secret_key, proving_key, iv=..., mesh=...)
-        -> MarlinProof
+        -> MarlinProof, or a PlonkProof for a Plonk key
     encrypt_batch(messages, secret_key, proving_key, mesh=...)
-        -> [MarlinProof]
+        -> [MarlinProof] or [PlonkProof]
     verify_encryption(verifying_key, proof, ciphertext, iv=...) -> bool
     compute_ciphertext(message, secret_key, iv=...) -> bytes
 
@@ -26,6 +29,13 @@ package does; the proofs equal the single-device ones. `encrypt_batch`
 keeps two proofs in flight, one CUDA stream each, where the JAX package's
 rule (4 or more host cores) and the card's free memory allow it
 (`pipeline_depth`).
+
+proof_system="plonk" proves one 16-byte ECB block with Plonk (GWC19) on
+the same kernels and the same kind of SRS: the AES-128 Plonk circuit
+(`plonk/aes_map.py`), its key preprocessed on the device
+(`plonk.prover.preprocess`) and cached on disk (`pk_torch_plonk_*`), and
+`TorchPlonkProver`, one proof in flight; its proofs serialize as
+"ZKAESPLK" v1.
 """
 
 from __future__ import annotations
@@ -54,6 +64,10 @@ from .ops.aes_host import encrypt_cbc, encrypt_ecb
 from .ops.field_params import R_MOD
 from .ops.witness import WitnessEvaluator, evaluate_sharded
 from .parallel.mesh import Mesh, make_mesh
+from .plonk import backend as _plonk
+from .plonk.aes_map import AesPlonkCircuit
+from .plonk.backend import PlonkProof, PlonkProvingKey, PlonkVerifyingKey
+from .plonk.prover import TorchPlonkProver, preprocess
 from .utils import spans
 from .utils import srs as _srs
 from .utils.config import CONFIG
@@ -78,12 +92,15 @@ __all__ = [
     "deserialize_proof", "serialize_proof", "Fr", "ZkAesError",
     "SynthesisError", "InvalidInputError", "CapacityError",
     "SerializationError", "ProofError", "Mesh", "make_mesh",
+    "AESPlonkProvingKey",
 ]
 
 log = logging.getLogger(__name__)
 
 TEMPLATE_VERSION = 2   # 2: R1CS pickles its running nonzero counts
 INDEX_VERSION = 2   # 2: keys pickle this package's own vk classes
+PLONK_KEY_VERSION = 1  # names the cached Plonk keys
+PROOF_SYSTEMS = ("marlin", "plonk")
 
 
 @dataclass
@@ -101,6 +118,18 @@ class AESProvingKey:
     # encrypt_batch's two CUDA streams, one a proof in flight, made on first
     # use: the allocator keeps the blocks a stream freed for that stream
     _streams: Tuple = ()
+
+
+@dataclass
+class AESPlonkProvingKey:
+    """A Plonk key of one AES-128 block: the circuit with its witness
+    trace (`assign`, `public_values`), the proving key, and the prover
+    built once on `device`."""
+    circuit: AesPlonkCircuit
+    plonk_pk: PlonkProvingKey
+    device: torch.device
+    setup_times: dict = field(default_factory=dict)
+    _prover: Optional[TorchPlonkProver] = None
 
 
 def bits_lsb_first(data: bytes) -> List[int]:
@@ -216,18 +245,85 @@ def _indexed_pk_cached(msg_len: int, mode: str, tpl: Template, srs: kzg.SRS,
     return pk
 
 
+def _plonk_pk_path(srs: kzg.SRS):
+    """Where the preprocessed key of the AES-Plonk circuit over one SRS is
+    cached."""
+    return CONFIG.template_dir / (
+        f"pk_torch_plonk_ecb_16_v{PLONK_KEY_VERSION}_srs{srs.max_degree}"
+        f"_{_srs_digest(srs)}.pkl")
+
+
+def _plonk_pk_cached(circuit, srs: kzg.SRS, device, use_disk_cache: bool):
+    """(PlonkProvingKey, TorchPlonkProver) of the AES-Plonk circuit:
+    preprocessed on the device and its eight column commitments cached
+    on disk; a cached key is read back and only its columns uploaded."""
+    data = circuit.compile()
+    path = _plonk_pk_path(srs) if use_disk_cache else None
+    if path is not None and path.exists():
+        log.info("loading Plonk proving key %s", path)
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        require(state["n"] == data.n, SynthesisError,
+                f"{path} is the key of another circuit")
+        return preprocess(data, srs, device, comms=state["comms"])
+    pk, prover = preprocess(data, srs, device)
+    if path is not None:
+        state = dict(n=data.n,
+                     comms=pk.vk.comm_selectors + pk.vk.comm_s_sigma)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(state, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    return pk, prover
+
+
+def _synthesize_plonk(plaintext_length: int, rng, srs: Optional[kzg.SRS],
+                      mode: str, device
+                      ) -> Tuple[AESPlonkProvingKey, PlonkVerifyingKey]:
+    require(plaintext_length == 16 and mode == "ecb", InvalidInputError,
+            f"AES-Plonk proves one 16-byte ECB block, not {plaintext_length}"
+            f" bytes in {mode!r} mode")
+    device = resolve_device(device)
+    rng = rng or generate_rand()
+    times = {}
+    t0 = time.perf_counter()
+    aes = AesPlonkCircuit()
+    n = aes.circuit.compile().n
+    times["template"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    caller_srs = srs is not None
+    if srs is None:
+        srs = _srs_for(n + 5, rng, device)
+    times["srs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pk, prover = _plonk_pk_cached(aes.circuit, srs, device,
+                                  use_disk_cache=not caller_srs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    times["index"] = time.perf_counter() - t0
+    return AESPlonkProvingKey(circuit=aes, plonk_pk=pk, device=device,
+                              setup_times=times, _prover=prover), pk.vk
+
+
 def synthesize_keys(plaintext_length: int, rng=None, *,
                     srs: Optional[kzg.SRS] = None, mode: str = "ecb",
-                    device="cuda") -> Tuple[AESProvingKey, MarlinVerifyingKey]:
+                    device="cuda", proof_system: str = "marlin"):
     """Trusted setup and circuit indexing, with the proving state on
     `device` (the CUDA card by default). The SRS is sized from the template,
     generated once (on the card for a CUDA device, by the native tier on
     the host otherwise) and checkpointed. mode="cbc" chains the blocks on a
-    public 16-byte iv.
+    public 16-byte iv. proof_system="plonk" gives (AESPlonkProvingKey,
+    PlonkVerifyingKey) for one 16-byte ECB block: its SRS of degree n + 5
+    drawn from `rng` as Marlin's is, its key preprocessed on `device`.
 
     Everything after `rng` is keyword-only: the JAX package's third
     positional parameter is its backend, so a call written for it fails
     here at the call."""
+    require(proof_system in PROOF_SYSTEMS, InvalidInputError,
+            f"proof_system must be one of {PROOF_SYSTEMS}, got "
+            f"{proof_system!r}")
+    if proof_system == "plonk":
+        return _synthesize_plonk(plaintext_length, rng, srs, mode, device)
     require(plaintext_length > 0 and plaintext_length % 16 == 0,
             InvalidInputError,
             f"plaintext_length must be a positive multiple of 16, got "
@@ -334,14 +430,47 @@ def _prove_z(prover: TorchProver, tpl: Template, z: torch.Tensor, rng,
     return prover.prove(instance, z[num_instance:], rng=rng, zk=zk)
 
 
+def _check_plonk(messages: Sequence[bytes], secret_key: bytes,
+                 iv: Optional[bytes], mesh) -> None:
+    """What a Plonk key proves: 16-byte messages under a 16-byte key,
+    no iv, on the key's own device."""
+    for m in messages:
+        require(len(m) == 16, InvalidInputError,
+                f"message is {len(m)} bytes; AES-Plonk proves one 16-byte "
+                f"block")
+    require(len(secret_key) == 16, InvalidInputError,
+            "secret_key must be exactly 16 bytes (AES-128)")
+    require(iv is None, InvalidInputError,
+            "iv given but the proving key is for ECB mode")
+    require(mesh is None, InvalidInputError,
+            "a Plonk proving key proves on its own device (no mesh)")
+
+
+def _prove_plonk(proving_key: AESPlonkProvingKey, message: bytes,
+                 secret_key: bytes, rng, zk: bool) -> PlonkProof:
+    """One Plonk proof on the key's prover: the witness is the circuit's
+    trace replayed for (message, key), the public values the ciphertext's
+    bits."""
+    aes = proving_key.circuit
+    public = aes.public_values(compute_ciphertext(message, secret_key))
+    return proving_key._prover.prove(
+        lambda: aes.assign_dense(message, secret_key), public, aes.circuit,
+        rng=rng, zk=zk)
+
+
 def encrypt(message: bytes, secret_key: bytes, proving_key: AESProvingKey,
             rng=None, zk: bool = True, iv: Optional[bytes] = None,
             mesh=None) -> MarlinProof:
     """Prove knowledge of (message, key) for the AES-128 ciphertext; CBC
     proving keys take the public 16-byte iv. With a `mesh`, the proof runs
     on the mesh's prover (kept on the key, one a mesh) and equals the
-    single-device proof from the same rng."""
+    single-device proof from the same rng. A Plonk key gives a PlonkProof;
+    with zk=False its eleven blinding scalars are 0."""
     with spans.span("api.encrypt", messages=1):
+        if isinstance(proving_key, AESPlonkProvingKey):
+            _check_plonk([message], secret_key, iv, mesh)
+            return _prove_plonk(proving_key, message, secret_key,
+                                rng or generate_rand(), zk)
         _check_mesh(mesh, proving_key)
         rng = rng or generate_rand()
         tpl = proving_key.template
@@ -436,13 +565,21 @@ def encrypt_batch(messages: List[bytes], secret_key: bytes,
     where `pipeline_depth` allows it (4 or more host cores, the JAX
     package's rule, and room on the card for a second proof); else they
     follow one after another. Proofs come back in message order; an error
-    in either proof is raised here."""
+    in either proof is raised here. A Plonk key proves the messages in
+    turn, one in flight, each from its seed as above."""
     with spans.span("api.encrypt_batch", messages=len(messages)):
         return _encrypt_batch(messages, secret_key, proving_key, rng, zk,
                               mesh)
 
 
 def _encrypt_batch(messages, secret_key, proving_key, rng, zk, mesh):
+    if isinstance(proving_key, AESPlonkProvingKey):
+        require(len(messages) > 0, InvalidInputError, "empty message batch")
+        _check_plonk(messages, secret_key, None, mesh)
+        rng = rng or generate_rand()
+        seeds = [rng.randrange(1 << 62) for _ in messages]
+        return [_prove_plonk(proving_key, m, secret_key, random.Random(seed),
+                             zk) for m, seed in zip(messages, seeds)]
     _check_mesh(mesh, proving_key)
     require(len(messages) > 0, InvalidInputError, "empty message batch")
     tpl = proving_key.template
@@ -478,11 +615,17 @@ def verify_encryption(verifying_key: MarlinVerifyingKey, proof: MarlinProof,
                       ciphertext: bytes, iv: Optional[bytes] = None) -> bool:
     """Public input [1] + LSB-first ciphertext bits, with the iv's bits
     before them for CBC, checked by the shared Marlin verifier on the
-    host."""
+    host. A Plonk verifying key takes the 16-byte ciphertext's bits alone
+    as public values (`plonk.backend.verify`, on the host)."""
     require(len(ciphertext) % 16 == 0 and len(ciphertext) > 0,
             InvalidInputError,
             f"ciphertext must be a positive multiple of 16 bytes, got "
             f"{len(ciphertext)}")
+    if isinstance(verifying_key, PlonkVerifyingKey):
+        require(iv is None and len(ciphertext) == 16, InvalidInputError,
+                "a Plonk verifying key takes one 16-byte ECB ciphertext")
+        return _plonk.verify(verifying_key, proof,
+                             bits_lsb_first(ciphertext))
     instance = [1]
     if iv is not None:
         require(len(iv) == 16, InvalidInputError, "iv must be 16 bytes")

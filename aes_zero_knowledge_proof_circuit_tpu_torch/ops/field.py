@@ -79,6 +79,17 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def upload(host: torch.Tensor, device) -> torch.Tensor:
+    """`host` on `device`; to a CUDA device from pinned memory on the
+    current stream, without waiting for the card (the caching host
+    allocator keeps the pinned copy until the copy has run), counted in
+    `upload_bytes`."""
+    spans.count("upload_bytes", spans.nbytes(host))
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def table_built(device) -> None:
     """Wait, on a CUDA `device`, for its current stream to finish what it
     has queued. Called once a table is built and before it is cached: a
@@ -152,9 +163,11 @@ class FieldOps:
 
     # -- host conversion ------------------------------------------------------
 
-    def from_ints(self, values: Iterable[int], device, mont: bool = True
-                  ) -> torch.Tensor:
-        """Python ints -> [n, L] limbs (Montgomery form unless mont=False)."""
+    def from_ints(self, values: Iterable[int], device, mont: bool = True,
+                  non_blocking: bool = False) -> torch.Tensor:
+        """Python ints -> [n, L] limbs (Montgomery form unless mont=False).
+        non_blocking=True enqueues the copy to a CUDA device from pinned
+        memory on the current stream, without waiting for the card."""
         p, nbytes = self.modulus, 4 * self.L
         if mont:
             raw = b"".join((int(v) % p * self.R_mod % p).to_bytes(nbytes, "little")
@@ -163,6 +176,8 @@ class FieldOps:
             raw = b"".join((int(v) % p).to_bytes(nbytes, "little")
                            for v in values)
         arr = np.frombuffer(raw, dtype="<u4").reshape(-1, self.L)
+        if non_blocking:
+            return upload(torch.from_numpy(arr.view(np.int32).copy()), device)
         with spans.wait("from_ints", upload=arr.nbytes):
             return torch.from_numpy(arr.view(np.int32).copy()).to(device)
 

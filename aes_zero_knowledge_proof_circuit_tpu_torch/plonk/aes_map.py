@@ -28,12 +28,14 @@ models/witness_plan.py's "synthesize once, fill per proof").
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
+
+import numpy as np
 
 from ..ops.aes_host import SBOX, RCON
 from ..ops.field_params import R_MOD
 from ..utils.errors import InvalidInputError, require
-from .circuit import PlonkCircuit
+from .circuit import SMALL, PlonkCircuit
 
 # trace op kinds
 _IN = 0        # (src, index)            src: 0=message 1=key
@@ -47,6 +49,7 @@ class AesPlonkCircuit:
     def __init__(self, build: bool = True) -> None:
         self.circuit = PlonkCircuit()
         self.trace: List[Tuple[int, tuple]] = []   # (var, (kind, ...))
+        self._levels = None     # (trace length, inputs, levels): _plan
         if build:
             self._build()   # tests use build=False for piece-level checks
 
@@ -236,6 +239,66 @@ class AesPlonkCircuit:
                 _, x, y, cx, cy = op
                 vals[var] = (cx * vals[x] + cy * vals[y]) % R_MOD
         return vals
+
+    def assign_dense(self, message: bytes, key: bytes
+                     ) -> Union[np.ndarray, Dict[int, int]]:
+        """`assign` as a dense int64 array indexed by variable id (0 where
+        the trace sets nothing: var 0 and the public inputs), replayed a
+        level of the trace at a time with numpy. int64 is exact while every
+        value lies in [0, SMALL) and every coefficient within SMALL of 0
+        (each term stays below 2^60), which each level checks; where one
+        does not hold, `assign`'s dict."""
+        require(len(message) == 16, InvalidInputError,
+                "plonk AES proves one 16-byte block")
+        require(len(key) == 16, InvalidInputError, "key must be 16 bytes")
+        plan = self._plan()
+        if plan is None:
+            return self.assign(message, key)
+        inputs, levels = plan
+        bits = np.unpackbits(np.frombuffer(bytes(message) + bytes(key),
+                                           np.uint8), bitorder="little")
+        z = np.zeros(self.circuit.num_vars, np.int64)
+        z[inputs[0]] = bits[inputs[1]]
+        for out, x, y, qm, ql, qr, qc in levels:
+            vx, vy = z[x], z[y]
+            v = qm * vx * vy + ql * vx + qr * vy + qc
+            if v.size and (v.min() < 0 or v.max() >= SMALL):
+                return self.assign(message, key)
+            z[out] = v
+        return z
+
+    def _plan(self):
+        """(inputs, levels) of the trace for `assign_dense`, built once:
+        inputs = (var ids, bit index into message bits then key bits);
+        each level the ops whose operands are all set by earlier levels,
+        as int64 arrays (out, x, y, qm, ql, qr, qc), an _ADD2 op as
+        qm = qc = 0. None where a coefficient lies SMALL or more from 0."""
+        if self._levels is not None and self._levels[0] == len(self.trace):
+            return self._levels[1]
+        depth = {0: 0}
+        inputs: Tuple[List[int], List[int]] = ([], [])
+        rows: Dict[int, List[tuple]] = {}
+        for var, op in self.trace:
+            if op[0] == _IN:
+                depth[var] = 0
+                inputs[0].append(var)
+                inputs[1].append(128 * op[1] + op[2])
+                continue
+            if op[0] == _BILIN:
+                _, x, y, qm, ql, qr, qc = op
+            else:
+                (_, x, y, ql, qr), qm, qc = op, 0, 0
+            d = 1 + max(depth[x], depth[y])
+            depth[var] = d
+            rows.setdefault(d, []).append((var, x, y, qm, ql, qr, qc))
+        plan = None
+        coeffs = [c for ops in rows.values() for row in ops for c in row[3:]]
+        if all(-SMALL < c < SMALL for c in coeffs):
+            plan = (tuple(np.asarray(col, np.int64) for col in inputs),
+                    [tuple(np.asarray(col, np.int64) for col in zip(*rows[d]))
+                     for d in sorted(rows)])
+        self._levels = (len(self.trace), plan)
+        return plan
 
     @staticmethod
     def public_values(ciphertext: bytes) -> List[int]:

@@ -26,8 +26,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..ops.field_params import R_MOD, fr_multiplicative_generator, root_of_unity
 from ..utils.errors import ZkAesError, require
+
+# wire values in [0, SMALL) and selectors within SMALL of 0 keep every term
+# of a gate's equation, and their sum, far inside int64: the sum is then 0
+# exactly when it is 0 mod r
+SMALL = 1 << 20
 
 
 @dataclass
@@ -55,6 +62,7 @@ class PlonkCircuit:
         self.gates: List[Gate] = []
         self.public_vars: List[int] = []
         self._compiled: Optional["PlonkCircuitData"] = None
+        self._table = None      # (data, wire var ids, signed selectors)
 
     # -- variables ---------------------------------------------------------
 
@@ -185,13 +193,29 @@ class PlonkCircuit:
         assignment maps var id -> value; var 0 and public vars are filled
         automatically. Raises if a gate equation is unsatisfied (the same
         eager check ark-relations' is_satisfied gives the reference)."""
+        return tuple(c.tolist()
+                     for c in self.wire_arrays(assignment, public_values))
+
+    def wire_arrays(self, assignment, public_values: Sequence[int]
+                    ) -> tuple:
+        """`wire_columns` as three arrays, of `assignment` as a dict or as a
+        dense array indexed by variable id. Where every value is small and
+        every selector near 0 (a boolean circuit's, the AES circuit's) the
+        columns are gathered and the equations checked on int64 arrays,
+        where int64 is exact; else gate by gate, and a column whose values
+        do not all fit int64 holds Python ints (dtype object)."""
         data = self.compile()
         require(len(public_values) == data.num_public, ZkAesError,
                 "public input count mismatch")
+        public = [x % R_MOD for x in public_values]
+        small = self._small_columns(data, assignment, public)
+        if small is not None:
+            return small
+        if isinstance(assignment, np.ndarray):
+            assignment = dict(enumerate(assignment.tolist()))
         full = dict(assignment)
         full[0] = 0
-        for v, x in zip(self.public_vars, public_values):
-            full[v] = x % R_MOD
+        full.update(zip(self.public_vars, public))
         cols: Tuple[List[int], List[int], List[int]] = ([], [], [])
         for j, g in enumerate(data.rows):
             va, vb, vc = (full.get(g.a, 0), full.get(g.b, 0),
@@ -204,7 +228,75 @@ class PlonkCircuit:
             cols[0].append(va % R_MOD)
             cols[1].append(vb % R_MOD)
             cols[2].append(vc % R_MOD)
-        return cols
+        return tuple(_array(c) for c in cols)
+
+    def _gate_table(self, data: "PlonkCircuitData"):
+        """(wire var ids, signed selectors) of the compiled rows as int64
+        arrays, the selectors None where one lies SMALL or more from 0."""
+        if self._table is None or self._table[0] is not data:
+            wires = tuple(np.fromiter((getattr(g, w) for g in data.rows),
+                                      np.int64, data.n) for w in "abc")
+            signed = [[v - R_MOD if v > R_MOD // 2 else v for v in col]
+                      for col in data.selector_evals]
+            sel = None
+            if all(-SMALL < v < SMALL for col in signed for v in col):
+                sel = [np.asarray(col, np.int64) for col in signed]
+            self._table = (data, wires, sel)
+        return self._table[1:]
+
+    def _small_columns(self, data: "PlonkCircuitData", assignment,
+                       public: List[int]):
+        """The wire columns as int64 arrays where every value of
+        `assignment` (a dict, or an int64 array of one value a variable)
+        and `public` (reduced) lies in [0, SMALL) and the selectors within
+        SMALL of 0; else None."""
+        wires, sel = self._gate_table(data)
+        if sel is None:
+            return None
+        try:
+            pub = np.fromiter(public, np.int64, len(public))
+            if isinstance(assignment, np.ndarray):
+                if assignment.dtype != np.int64 or \
+                        assignment.shape != (self.num_vars,):
+                    return None
+                vals = assignment
+            else:
+                keys = np.fromiter(assignment.keys(), np.int64,
+                                   len(assignment))
+                vals = np.fromiter(assignment.values(), np.int64,
+                                   len(assignment))
+        except (OverflowError, TypeError, ValueError):
+            return None     # a value too large for int64, or not a number
+        if any(x.size and (x.min() < 0 or x.max() >= SMALL)
+               for x in (vals, pub)):
+            return None
+        if isinstance(assignment, np.ndarray):
+            z = vals.copy()
+        else:
+            z = np.zeros(self.num_vars, np.int64)
+            keep = (keys >= 0) & (keys < self.num_vars)
+            z[keys[keep]] = vals[keep]
+        z[0] = 0
+        public_vars = np.asarray(self.public_vars, np.int64)
+        z[public_vars] = pub
+        a, b, c = (z[ids] for ids in wires)
+        ql, qr, qo, qm, qc = sel
+        lhs = ql * a + qr * b + qo * c + qm * a * b + qc
+        lhs[:data.num_public] -= pub
+        bad = np.flatnonzero(lhs)
+        require(bad.size == 0, ZkAesError,
+                f"gate {int(bad[0]) if bad.size else 0} unsatisfied by "
+                f"witness")
+        return a, b, c
+
+
+def _array(values: List[int]) -> np.ndarray:
+    """`values` as an int64 array where each fits, else as an array of
+    Python ints."""
+    try:
+        return np.asarray(values, np.int64)
+    except OverflowError:
+        return np.asarray(values, object)
 
 
 @dataclass

@@ -29,10 +29,18 @@ from ..marlin.indexer import MarlinVerifyingKey
 from ..marlin.prover import MarlinProof
 from ..ops import kzg
 from ..ops.curve_host import AffinePoint
+from ..plonk.backend import PlonkProof
 from . import ark_serialize as ark
+from .errors import SerializationError, require
 
 MAGIC = b"ZKAESTPU"
 VERSION = 2
+# a Plonk proof: the magic, a u32 version, then comm_a, comm_b, comm_c,
+# comm_z, t_lo, t_mid, t_hi, the six evaluations (a, b, c, s1, s2, zw) and
+# w_zeta, w_zeta_omega; no counts and nothing after the last point
+PLONK_MAGIC = b"ZKAESPLK"
+PLONK_VERSION = 1
+PLONK_SIZE = 12 + 9 * 48 + 6 * 32
 
 
 # -- primitives -------------------------------------------------------------
@@ -79,7 +87,11 @@ def _ark_container_enabled() -> bool:
     return os.environ.get("ZKAES_PROOF_CONTAINER", "").lower() == "ark"
 
 
-def serialize_proof(proof: MarlinProof) -> bytes:
+def serialize_proof(proof) -> bytes:
+    """A Marlin proof as "ZKAESTPU" v2 (or the ark container where
+    ZKAES_PROOF_CONTAINER=ark), a Plonk proof as "ZKAESPLK" v1."""
+    if isinstance(proof, PlonkProof):
+        return _serialize_plonk(proof)
     if _ark_container_enabled():
         from .ark_container import proof_to_ark_bytes
 
@@ -110,9 +122,12 @@ def serialize_proof(proof: MarlinProof) -> bytes:
     return b.getvalue()
 
 
-def deserialize_proof(data: bytes) -> MarlinProof:
+def deserialize_proof(data: bytes):
     """Reference API analog: simpleworks::marlin::serialization::
-    deserialize_proof (re-export src/lib.rs:52)."""
+    deserialize_proof (re-export src/lib.rs:52). Bytes that begin with
+    the Plonk magic are read as a Plonk proof."""
+    if data[:8] == PLONK_MAGIC:
+        return _deserialize_plonk(data)
     if data[:8] != MAGIC and (_ark_container_enabled() or data[:1] == b"\x03"):
         # ark-layout containers have no magic; their first 8 bytes are the
         # u64 LE round count (3 => first byte 0x03, which can never collide
@@ -149,6 +164,40 @@ def deserialize_proof(data: bytes) -> MarlinProof:
         sigmas=sigmas, evals_beta1=evals_beta1, evals_beta2=evals_beta2,
         open_beta1=opens[0], open_beta2=opens[1],
     )
+
+
+def _serialize_plonk(proof: PlonkProof) -> bytes:
+    b = io.BytesIO()
+    b.write(PLONK_MAGIC)
+    _w_u32(b, PLONK_VERSION)
+    for c in (proof.comm_a, proof.comm_b, proof.comm_c, proof.comm_z,
+              *proof.comm_t):
+        _w_g1(b, c.point)
+    for v in (proof.eval_a, proof.eval_b, proof.eval_c, proof.eval_s1,
+              proof.eval_s2, proof.eval_zw):
+        _w_fr(b, v)
+    _w_g1(b, proof.w_zeta.point)
+    _w_g1(b, proof.w_zeta_omega.point)
+    return b.getvalue()
+
+
+def _deserialize_plonk(data: bytes) -> PlonkProof:
+    """"ZKAESPLK" v1, every point on the curve and every value below r,
+    and nothing after the last point (SerializationError otherwise)."""
+    require(len(data) == PLONK_SIZE, SerializationError,
+            f"a Plonk proof is {PLONK_SIZE} bytes, got {len(data)}")
+    b = io.BytesIO(data)
+    b.read(8)
+    require(_r_u32(b) == PLONK_VERSION, SerializationError,
+            "unsupported Plonk proof version")
+    comms = [kzg.Commitment(_r_g1(b)) for _ in range(7)]
+    evals = [_r_fr(b) for _ in range(6)]
+    w_zeta, w_zeta_omega = (kzg.Commitment(_r_g1(b)) for _ in range(2))
+    return PlonkProof(
+        comm_a=comms[0], comm_b=comms[1], comm_c=comms[2], comm_z=comms[3],
+        comm_t=comms[4:], eval_a=evals[0], eval_b=evals[1], eval_c=evals[2],
+        eval_s1=evals[3], eval_s2=evals[4], eval_zw=evals[5],
+        w_zeta=w_zeta, w_zeta_omega=w_zeta_omega)
 
 
 # -- verifying key ----------------------------------------------------------

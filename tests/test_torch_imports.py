@@ -16,10 +16,15 @@ function.
   `verify_encryption(iv=...)` up to the verifier and `encrypt_batch`'s
   checks;
 * and the forward step of `entry.py` on the CPU: the 16-byte template's
-  ciphertext bits and residual 0."""
+  ciphertext bits and residual 0;
+* and the API's Plonk path: `synthesize_keys(proof_system="plonk")` with
+  the stand-in circuit of tests/torch_threads.py, `encrypt`, the codec and
+  `verify_encryption`.
+
+The subprocesses that run torch work run with one intra-op thread
+(`one_thread_env`), as every test process does."""
 
 import ast
-import os
 import pkgutil
 import subprocess
 import sys
@@ -28,6 +33,7 @@ from pathlib import Path
 import pytest
 
 import aes_zero_knowledge_proof_circuit_tpu_torch as port
+from tests.torch_threads import one_thread_env
 
 ROOT = Path(__file__).resolve().parent.parent
 JAX_PACKAGE = "aes_zero_knowledge_proof_circuit_tpu"
@@ -160,7 +166,8 @@ print("proved and verified")
 
 def test_toy_prove_without_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", TOY_PROVE], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          env=one_thread_env(), capture_output=True,
+                          text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("proved and verified")
 
@@ -206,7 +213,7 @@ print("cbc paths ran")
 
 
 def test_cbc_and_batch_paths_without_the_jax_package(tmp_path):
-    env = dict(os.environ, ZKAES_CACHE_DIR=str(tmp_path))
+    env = one_thread_env(ZKAES_CACHE_DIR=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", CBC_PATHS], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
@@ -235,9 +242,41 @@ print("forward step ran")
 
 
 def test_entry_without_the_jax_package(tmp_path):
-    env = dict(os.environ, ZKAES_CACHE_DIR=str(tmp_path))
+    env = one_thread_env(ZKAES_CACHE_DIR=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", ENTRY], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("forward step ran")
+
+
+PLONK_PATH = BLOCK + """
+import random
+from aes_zero_knowledge_proof_circuit_tpu_torch import api
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+    generate_srs_native)
+from tests.torch_threads import CiphertextPairs
+
+api.AesPlonkCircuit = CiphertextPairs
+srs = generate_srs_native(256 + 5, random.Random(8))
+key, vk = api.synthesize_keys(16, srs=srs, proof_system="plonk",
+                              device="cpu")
+message, secret = bytes(range(16)), bytes(range(16, 32))
+proof = api.encrypt(message, secret, key, zk=False)
+data = api.serialize_proof(proof)
+assert len(data) == 636 and data[:8] == b"ZKAESPLK"
+ct = api.compute_ciphertext(message, secret)
+assert api.verify_encryption(vk, api.deserialize_proof(data), ct)
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+    m == "jax" or m.startswith(("jax.", "jaxlib", "aes_zero_knowledge_proof_circuit_tpu."))))
+assert not loaded, loaded
+print("plonk path ran")
+"""
+
+
+def test_plonk_path_without_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", PLONK_PATH], cwd=ROOT,
+                          env=one_thread_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("plonk path ran")

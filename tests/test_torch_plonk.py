@@ -4,10 +4,18 @@ versions), with integers and zero tolerance.
 * `PlonkCircuit.compile()` and `wire_columns` equal the JAX package's on
   the arithmetic and xor circuits of tests/test_plonk.py, a chain of 2^8
   gates and the whole AES-128 circuit (272,544 gates, n = 2^19);
+* `wire_arrays`' int64 path gives the gate-by-gate path's columns and
+  names the same first unsatisfied gate; both return arrays (int64, or
+  Python ints where a value does not fit);
+* `AesPlonkCircuit.assign_dense` equals `assign`, and falls back to it
+  where int64 would not be exact;
 * the AES circuit rejects a tampered ciphertext, and its S-box and xtime
   gates compute the AES tables;
 * `FieldOps.prefix_mul` equals F32Ops._prefix_mul and the host product;
-* the port's `setup` gives the JAX package's verifying key;
+* the port's `setup`, and `preprocess` on the device, give the JAX
+  package's verifying key;
+* a zk=False proof draws nothing and equals the JAX package's host
+  prover's with every blinding scalar 0;
 * `TorchPlonkProver` proofs equal `JaxPlonkProver`'s and both host
   provers', field for field, on the arithmetic circuit and on the chain
   (n = 2^9: its 4n coset, 2^11, runs K2's plain version in two passes), and
@@ -19,6 +27,7 @@ import sys
 from pathlib import Path
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from aes_zero_knowledge_proof_circuit_tpu.ops.aes_host import encrypt_ecb
@@ -42,16 +51,26 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.plonk import (
     PlonkCircuit,
     backend,
 )
+from aes_zero_knowledge_proof_circuit_tpu_torch.plonk import (
+    circuit as circuit_mod,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.aes_map import (
     AesPlonkCircuit,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
     TorchPlonkProver,
     field_rows,
+    preprocess,
 )
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import spans
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils.errors import ZkAesError
-from tests.torch_threads import chain_circuit, jax_srs
+from tests.torch_threads import (
+    NoDraws,
+    ZeroDraws,
+    chain_circuit,
+    jax_srs,
+    one_thread_env,
+)
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F = fr_ops()
@@ -151,6 +170,30 @@ def test_compile_matches_jax(build):
     assert_same_compile(jc, tc, assign, public)
 
 
+@pytest.mark.parametrize("build, dtype", [
+    (arith, np.int64), (xor_demo, np.int64), (chain, object)],
+    ids=["arith", "xor", "chain"])
+def test_wire_arrays_equal_the_gate_by_gate_path(build, dtype, monkeypatch):
+    tc, assign, public = build(PlonkCircuit)
+    fast = tc.wire_arrays(assign, public)
+    assert all(isinstance(c, np.ndarray) and c.dtype == dtype for c in fast)
+    assert [c.tolist() for c in fast] == list(tc.wire_columns(assign, public))
+    bad = dict(assign)
+    bad[min(assign)] += 1
+    with pytest.raises(ZkAesError) as fast_error:
+        tc.wire_arrays(bad, public)
+    # no selector lies within 1 of 0 but 0: every gate is checked in turn
+    monkeypatch.setattr(circuit_mod, "SMALL", 1)
+    slow_circuit, _, _ = build(PlonkCircuit)
+    slow = slow_circuit.wire_arrays(assign, public)
+    assert all(isinstance(c, np.ndarray) and c.dtype == dtype for c in slow)
+    assert [c.tolist() for c in fast] == [c.tolist() for c in slow]
+    with pytest.raises(ZkAesError) as slow_error:
+        slow_circuit.wire_arrays(bad, public)
+    assert str(fast_error.value) == str(slow_error.value)
+    assert "unsatisfied" in str(fast_error.value)
+
+
 def test_aes_compile_matches_jax(aes_circuits):
     jac, tac = aes_circuits
     ct = bytes(encrypt_ecb(MSG, KEY))
@@ -161,6 +204,41 @@ def test_aes_compile_matches_jax(aes_circuits):
     td = assert_same_compile(jac.circuit, tac.circuit, assign, public)
     assert len(tac.circuit.gates) == 272_544
     assert (td.n, td.num_public) == (1 << 19, 128)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_aes_assign_dense_equals_the_replay(aes_circuits, seed):
+    _jac, tac = aes_circuits
+    rng = random.Random(seed)
+    message, key = rng.randbytes(16), rng.randbytes(16)
+    public = tac.public_values(bytes(encrypt_ecb(message, key)))
+    assign = tac.assign(message, key)
+    dense = tac.assign_dense(message, key)
+    assert isinstance(dense, np.ndarray) and dense.dtype == np.int64
+    assert dense.shape == (tac.circuit.num_vars,)
+    want = np.zeros(tac.circuit.num_vars, np.int64)
+    want[list(assign)] = list(assign.values())
+    assert (dense == want).all()
+    assert [c.tolist() for c in tac.circuit.wire_arrays(dense, public)] == \
+        [c.tolist() for c in tac.circuit.wire_arrays(assign, public)]
+    flipped = list(public)
+    flipped[seed] ^= 1
+    with pytest.raises(ZkAesError):
+        tac.circuit.wire_arrays(dense, flipped)
+
+
+@pytest.mark.parametrize("qc", [-5, R_MOD - 5, 1 << 20],
+                         ids=["negative", "reduced", "large"])
+def test_assign_dense_falls_back_to_the_replay(qc):
+    """A value or a coefficient outside int64's exact range gives
+    `assign`'s dict."""
+    ac = AesPlonkCircuit(build=False)
+    x, y = ac._input(0, 0), ac._input(1, 0)
+    ac._add2(ac._bilin(x, y, 1, 0, 0, qc), x)
+    message, key = b"\x01" + bytes(15), bytes(16)
+    dense = ac.assign_dense(message, key)
+    assert isinstance(dense, dict)
+    assert dense == ac.assign(message, key)
 
 
 def test_aes_tampered_ciphertext_raises(aes_circuits):
@@ -284,6 +362,29 @@ def test_prover_matches_jax_and_host(keys):
     assert not backend.verify(pk.vk, got, bad)
 
 
+def test_preprocess_matches_jax_setup(keys):
+    """The key preprocessed on the device (K2 interpolates, K3 commits)
+    is the JAX package's `setup` key, point for point."""
+    _jc, tc, _assign, _public, jpk, pk, _tpk = keys
+    dpk, _prover = preprocess(tc.compile(), pk.srs, "cpu")
+    vk, want = dpk.vk, jpk.vk
+    assert [pt(c.point) for c in vk.comm_selectors + vk.comm_s_sigma] == \
+        [pt(c.point) for c in want.comm_selectors + want.comm_s_sigma]
+    assert (vk.n, vk.omega, tuple(vk.ks), vk.num_public) == (
+        want.n, want.omega, tuple(want.ks), want.num_public)
+    assert pt(vk.kzg_vk.g) == pt(want.kzg_vk.g)
+
+
+def test_zk_off_matches_jax_unblinded(keys):
+    """zk=False draws nothing and equals the JAX package's host prover
+    with every blinding scalar 0, field for field."""
+    jc, tc, assign, public, jpk, pk, _tpk = keys
+    _dpk, prover = preprocess(tc.compile(), pk.srs, "cpu")
+    got = prover.prove(assign, public, tc, rng=NoDraws(), zk=False)
+    want = jax_backend.prove(jpk, assign, public, jc, rng=ZeroDraws())
+    assert proof_fields(got) == proof_fields(want)
+
+
 NO_JAX_PROVE = """
 import random, sys
 sys.modules['jax'] = None
@@ -321,6 +422,7 @@ print("plonk proved and verified")
 
 def test_prove_without_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", NO_JAX_PROVE], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          env=one_thread_env(), capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("plonk proved and verified")

@@ -11,6 +11,11 @@
 * Each `host.hiding` span opens after its batch's MSMs and ends before
   their points are read back (`wait.card(xyzz_to_affine)`).
 * The buffer's bound, the count of dropped spans, and `drain()`.
+* An `api.encrypt` on a Plonk key (the stand-in circuit of
+  `tests/torch_threads.py`) gives the Plonk tree: the witness fill with
+  its uploads, the prove tiled by its five rounds, the blinding draws,
+  the grand product and the quotient (its six 4n transforms, counted in
+  `coset_ntts`); with the facility off a seeded proof is byte-equal.
 """
 
 import collections
@@ -29,7 +34,14 @@ from aes_zero_knowledge_proof_circuit_tpu_torch.marlin.prover import (
 from aes_zero_knowledge_proof_circuit_tpu_torch.models.r1cs import R1CS
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops import kzg
 from aes_zero_knowledge_proof_circuit_tpu_torch.ops.field_params import R_MOD
+from aes_zero_knowledge_proof_circuit_tpu_torch.plonk.prover import (
+    preprocess,
+)
 from aes_zero_knowledge_proof_circuit_tpu_torch.utils import spans
+from aes_zero_knowledge_proof_circuit_tpu_torch.utils.srs import (
+    generate_srs_native,
+)
+from tests.torch_threads import CiphertextPairs
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KEY = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
@@ -337,4 +349,77 @@ def test_drain_clears_spans_and_counters():
     some()
     spans.disable()
     assert len(spans.drain()[0]) == 2
+    assert spans.drain() == ([], {})
+
+
+PLONK_ROUNDS = ["r1_wires", "r2_grand_product", "r3_quotient", "r4_evals",
+                "r5_open"]
+
+
+@pytest.fixture(scope="module")
+def plonk_key():
+    toy = CiphertextPairs()
+    data = toy.circuit.compile()
+    pk, prover = preprocess(data, generate_srs_native(
+        data.n + 5, random.Random(4)), "cpu")
+    return api.AESPlonkProvingKey(circuit=toy, plonk_pk=pk,
+                                  device=torch.device("cpu"), _prover=prover)
+
+
+@pytest.fixture(scope="module")
+def plonk_traced(plonk_key):
+    spans.enable()
+    try:
+        proof = api.encrypt(bytes(range(16)), KEY, plonk_key,
+                            rng=random.Random(7))
+    finally:
+        spans.disable()
+    return (proof,) + spans.drain()
+
+
+def test_a_plonk_request_is_one_tree(plonk_traced):
+    _proof, got, counters = plonk_traced
+    kids = children(got)
+    (root,) = kids[None]
+    assert root.name == "api.encrypt"
+    assert {sp.request for sp in got} == {root.id}
+    assert [sp.name for sp in kids[root.id]] == ["witness.fill", "prove"]
+    fill, prove = kids[root.id]
+    assert fill.attrs == {"rows": 1} and fill.proof is None
+    # the three columns' uploads are queued without waiting for the card
+    assert not [sp for sp in kids[fill.id] if sp.name == "wait.card"]
+    assert counters["upload_bytes"] >= 3 * 256 * 8
+    rounds = kids[prove.id]
+    assert [sp.name for sp in rounds] == ["round." + r for r in PLONK_ROUNDS]
+    assert rounds[0].t0 >= prove.t0 and rounds[-1].t1 <= prove.t1
+    for a, b in zip(rounds, rounds[1:]):
+        assert 0 <= b.t0 - a.t1 < 50_000_000
+    assert sum(sp.t1 - sp.t0 for sp in rounds) >= 0.9 * (prove.t1 - prove.t0)
+    by_round = {sp.name[len("round."):]: {c.name: c for c in kids[sp.id]}
+                for sp in rounds}
+    draws = [sp for sp in got if sp.name == "host.mask_draw"]
+    assert [sp.attrs["elements"] for sp in draws] == [6, 3, 2]
+    assert [sp.parent for sp in draws] == [
+        by_round[r]["host.mask_draw"].parent for r in PLONK_ROUNDS[:3]]
+    assert "plonk.grand_product" in by_round["r2_grand_product"]
+    quotient = by_round["r3_quotient"]["plonk.quotient"]
+    transforms = [sp for sp in kids[quotient.id] if sp.name == "ntt"]
+    assert [sp.attrs["n"] for sp in transforms] == [4 * 256] * 6
+    assert counters["coset_ntts"] == 6
+    waits = [sp for sp in got if sp.name == "wait.card"]
+    assert counters["card_waits"] == len(waits) >= 1
+    # the host waits for what the transcript reads, and for no upload of
+    # the prover's own (from_ints here: the CPU's plain MSM puts its sum
+    # back on the device)
+    assert {"xyzz_to_affine", "to_ints"} <= {
+        sp.attrs["what"] for sp in waits} <= {
+        "xyzz_to_affine", "to_ints", "from_ints"}
+    assert all(sp.proof == prove.id for sp in got
+               if sp.name.startswith(("round.", "plonk.", "host.")))
+
+
+def test_spans_leave_a_plonk_proof_as_it_was(plonk_key, plonk_traced):
+    proof = plonk_traced[0]
+    off = api.encrypt(bytes(range(16)), KEY, plonk_key, rng=random.Random(7))
+    assert api.serialize_proof(off) == api.serialize_proof(proof)
     assert spans.drain() == ([], {})
